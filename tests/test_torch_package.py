@@ -1,0 +1,137 @@
+"""Rules of the port package, and its kernels against their plain versions.
+
+The kernel cases need a CUDA card and skip without one; run them on the
+card with ``python -m pytest --noconftest tests/test_torch_package.py``
+(``tests/conftest.py`` imports JAX, which the card's machine need not have).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zkdcap_tpu_torch import interop
+from zkdcap_tpu_torch.commit import gen_srs
+from zkdcap_tpu_torch.curves import BN254_G1
+from zkdcap_tpu_torch.curves import ec_kernels as ek
+from zkdcap_tpu_torch.curves.device_g1 import (
+    G1_SPEC, affine_to_projective, decode_points, encode_points)
+from zkdcap_tpu_torch.fields import BN254_FR, mont
+from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
+from zkdcap_tpu_torch.ntt.ntt import _pass_twiddles
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import zkdcap_tpu_torch, zkdcap_tpu_torch.commit, zkdcap_tpu_torch.interop\n"
+        "import zkdcap_tpu_torch.msm, zkdcap_tpu_torch.ntt, zkdcap_tpu_torch._build\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: entry points run on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gen_srs(2, cache_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mont.encode_ints(BN254_FR, [1, 2])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        interop.to_torch(np.zeros((1, 16), np.uint32))
+
+
+def test_interop_round_trip_keeps_bit_patterns():
+    a = np.array([[0, 1, 0xFFFF, 0x80000000, 0xFFFFFFFF]], dtype=np.uint32)
+    t = interop.to_torch(a, device="cpu")
+    assert t.dtype == torch.int32 and np.array_equal(interop.to_numpy(t), a)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _rand_fr(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(32), "little") % BN254_FR.p for _ in range(n)]
+    return mont.encode_ints(BN254_FR, vals, device=dev)
+
+
+@pytest.mark.parametrize("log_s", [1, 5, 9, 11])
+def test_kernel_a_matches_plain(cuda, log_s):
+    rows = 4
+    x = _rand_fr(rows << log_s, log_s, cuda).reshape(rows, 1 << log_s, 16)
+    ptw = _rand_fr(rows << log_s, 99, cuda)
+    for inverse in (False, True):
+        tw = _pass_twiddles(log_s, inverse, cuda)
+        for post in (None, ptw):
+            got = ntt_pass(x, tw, post)
+            ref = ntt_pass_plain(x, tw, post)
+            assert torch.equal(got, ref)
+
+
+def _points(n, dev):
+    pts, cur = [], BN254_G1.g
+    for _ in range(n):
+        pts.append(cur)
+        cur = BN254_G1.add(cur, BN254_G1.mul(3, cur))
+    return encode_points(G1_SPEC, pts, device=dev)
+
+
+def test_kernels_b_c_d_match_plain(cuda):
+    n = 256
+    P = affine_to_projective(G1_SPEC, _points(n, cuda))
+    Q = tuple(c.roll(7, 0).contiguous() for c in P)
+    mask = (torch.arange(n, device=cuda) % 3 != 0).to(torch.int32)
+    for fb in ("p", "q"):
+        got = ek.ec_add_select(G1_SPEC, P, Q, mask, fb)
+        ref = ek.ec_add_select_plain(G1_SPEC, P, Q, mask, fb)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    M, B = 4, 128
+    rows = ek.pack_affine_rows(_points(M * B, cuda)).reshape(M, B, 16).transpose(1, 2).contiguous()
+    gen = torch.Generator().manual_seed(3)
+    masks = torch.randint(0, 2, (M, 3, B), generator=gen, dtype=torch.int32).to(cuda)
+    got = ek.ec_madd_scan_full(G1_SPEC, rows, masks)
+    ref = ek.ec_madd_scan_plain(G1_SPEC, rows, masks)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    T = tuple(c[:5].contiguous() for c in P)
+    got = ek.ec_window_join(G1_SPEC, T, 7)
+    ref = ek.ec_window_join_plain(G1_SPEC, T, 7)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """NTT at every size up to 2^13 (one pass and four-step splits) and the
+    MSM (ladder and Pippenger) agree between the card and the plain CPU path."""
+    from zkdcap_tpu_torch.msm import msm_device, msm_host
+    from zkdcap_tpu_torch.ntt import intt, ntt
+
+    cpu = torch.device("cpu")
+    for log_n in range(1, 14):
+        x = _rand_fr(1 << log_n, 100 + log_n, cuda)
+        assert torch.equal(ntt(BN254_FR, x).cpu(), ntt(BN254_FR, x.cpu()))
+        assert torch.equal(intt(BN254_FR, x).cpu(), intt(BN254_FR, x.cpu()))
+    for n, lanes, c in ((16, 0, 0), (1024, 256, 8)):
+        pts = _points(n, cuda)
+        rng = np.random.default_rng(n)
+        vals = [int.from_bytes(rng.bytes(32), "little") % BN254_G1.n for _ in range(n)]
+        if lanes:
+            std = mont.encode_ints(BN254_FR, vals, to_montgomery=False, device=cuda)
+            got = msm_device(G1_SPEC, pts, std, lanes, c)
+            ref = msm_device(G1_SPEC, pts.to(cpu), std.to(cpu), lanes, c)
+            assert (decode_points(G1_SPEC, tuple(r[None] for r in got))
+                    == decode_points(G1_SPEC, tuple(r[None] for r in ref)))
+        else:
+            sc = mont.encode_ints(BN254_FR, vals, device=cuda)
+            assert msm_host(pts, sc) == msm_host(pts.to(cpu), sc.to(cpu))

@@ -1,0 +1,151 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` (all
+started together), and the objects are linked into one shared library with
+a plain C interface, ``build/kernels/libzkdcap_kernels.so`` at the root of
+the checkout, loaded with ctypes. The build runs at first use and again only
+when a source or a flag changes (a hash of both sits beside the library).
+
+Each kernel wrapper counts its launches in :data:`launches`, so that a run
+can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+LIB_NAME = "libzkdcap_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# C entry points: name -> argument types (every pointer and the stream as
+# c_void_p, sizes as c_int); each returns cudaGetLastError() after its launch.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    # x, out, tw, ptw, total_rows, log_size, ptw_period, stream
+    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rows, masks, ox, oy, oz, steps, lanes, stream
+    "zk_madd_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # x1, y1, z1, x2, y2, z2, mask, ox, oy, oz, n, fallback_q, stream
+    "zk_ec_add_select": [_P] * 10 + [_I, _I, _P],
+    # tx, ty, tz, ox, oy, oz, windows, window_bits, stream
+    "zk_window_join": [_P] * 6 + [_I, _I, _P],
+}
+
+launches = {"ntt_pass": 0, "madd_scan": 0, "ec_add_select": 0, "window_join": 0}
+
+_lib = None
+_lock = threading.Lock()
+build_log = ""
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the machine with the card")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> Path:
+    """Compile csrc/ into the shared library unless it is current; returns its path."""
+    global build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / "sources.sha256"
+    digest = _digest()
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib_path
+    nvcc = _nvcc()
+    # objects and the library go to per-process names first, so that
+    # concurrent first uses (test workers) never clash; the rename is atomic
+    work = Path(tempfile.mkdtemp(prefix="obj-", dir=BUILD_DIR))
+    try:
+        procs = []
+        for src in _sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode:
+                failed.append(obj.stem)
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+        tmp = work / LIB_NAME
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                *(str(obj) for obj, _ in procs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"link failed:\n{res.stdout}{res.stderr}")
+        os.replace(tmp, lib_path)
+        stamp.write_text(digest)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``zk_<name>`` on the current stream; raise on a CUDA error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), "zk_" + name)(*args, stream)
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed: error {err}")
+    launches[name] += 1
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous, 16-byte aligned int32 tensors on
+    the current CUDA device."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for t in tensors:
+        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: expects contiguous aligned int32 tensors on {dev}, "
+                             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
