@@ -6,23 +6,38 @@
 Needs one CUDA card (an H100 for the numbers the repo keeps) and nvcc; it
 fails, printing no result, without them or outside a checkout of the repo.
 
-1. builds the five CUDA kernels from ``zkdcap_tpu_torch/csrc`` (one nvcc per
-   source, in parallel);
+1. builds the six CUDA kernels from ``zkdcap_tpu_torch/csrc`` (one nvcc per
+   source, in parallel) and the host witness evaluator (g++);
 2. runs each kernel and its plain torch version on the same seeded inputs at
-   the main path's shapes and requires an exact match, timing both;
+   the main path's shapes and requires an exact match, timing both (and,
+   for kernel F, the PyTorch sort + gather that computes the same function);
 3. drives the commitment engine at k = 18 through its entry points, each
    phase against an independent host oracle: gen_srs(18), commit_lagrange
    and commit_many of 2^18-point polys, the Domain(18, 20) coset round trip,
-   a 2^20-point msm_device at 16384 lanes, and a 2^22-point NTT; every
+   a 2^20-point msm_device at 16384 lanes, and a 2^22-point NTT; then the
+   2^20 MSM and the 2^18 commitment again under ``ZKDCAP_MSM_ROWSORT=1`` and
+   ``ZKDCAP_MSM_BITONIC=1``, equal to the default path's points; every
    kernel's launch count must rise during this phase;
 4. drives the prover: the small circuits of the CPU tests must prove the
    bytes of ``zkdcap_tpu_torch/testdata/reference_proofs.json`` (the JAX
    package's proofs), then a circuit with the k = 18 P-256 ECDSA circuit's
    layout (``assets/pinning_k18.json``) goes through keygen and three seeded
    proofs, which must be identical, pass the port's verifier and fail it
-   with one byte flipped; every kernel's launch count must rise here too;
-5. profiles the engine's phases and one k = 18 proof with torch.profiler;
-6. prints the kernel table as one JSON line, the card's name and power
+   with one byte flipped; every kernel but F must launch here;
+5. drives the slice's main path, the P-256 ECDSA prover service
+   ``ECDSAProver(k=18)`` on the real circuit, in a fresh params dir: keygen
+   (its ``vk_k18.json`` must equal ``assets/vk_k18.json``), a reload from the
+   saved artifacts, and proofs of the reference test vector under one
+   blinding seed, one untimed and then two each with the default sorts,
+   ``ZKDCAP_MSM_ROWSORT=1`` and ``ZKDCAP_MSM_BITONIC=1``: identical, equal
+   to the JAX package's proof in
+   ``zkdcap_tpu_torch/testdata/p256_proof.json``, accepted by ``verify``
+   (and a flipped byte rejected), with the native witness evaluator run for
+   each; ``assets/p256_proof.hex`` must verify; kernels A-F must launch;
+6. profiles the engine's phases (the 2^20 MSM also under each sort switch)
+   and one k = 18 P-256 proof under each of the three sorts with
+   torch.profiler;
+7. prints the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Everything it prints also lands in ``build/chip_smoke.json``.
@@ -31,6 +46,7 @@ Everything it prints also lands in ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -58,6 +74,8 @@ ALSO_REPLACES = {
     "ntt_pass": ["zkdcap_tpu/fields/pallas_mont.py:396", "zkdcap_tpu/fields/pallas_mont.py:738"],
     "madd_scan": ["zkdcap_tpu/curves/ec_kernels.py:560",
                   "zkdcap_tpu/curves/ec_kernels.py:149 (as one step, M = 1)"],
+    "bitonic_sort": ["zkdcap_tpu/utils/device_sort.py:105 (_sort_call, bitonic_sort)",
+                     "zkdcap_tpu/utils/device_sort.py:153 (_rows_sort_call, sort_rows_by_key)"],
 }
 
 # The main path's shapes: a k = 18 SRS and commitments, the Domain(18, 20)
@@ -68,9 +86,17 @@ ALSO_REPLACES = {
 SIZES = {"k": 18, "ext_k": 20, "msm_log": 20, "lanes": 16384, "ntt_log": 22,
          "pass_logs": (9, 10, 11), "scan": (64, 8 * 16384), "hs_lanes": 8 * (16384 + 32768),
          "join": (16, 16), "pool": 4096, "mul_log": 20, "proofs": 3}
-KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul")
-# the blinding seed of the k = 18 proofs
+KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul", "bitonic_sort")
+# the blinding seed of the k = 18 layout proofs
 PROOF_SEED = b"chip-smoke-k18"
+# Kernel F's shapes on the main path: the window groups of a 2^18 commitment
+# (c = 13: 20 windows, 5 per group, digits |d| <= 2^12) and of bench.py's
+# 2^20 MSM (c = 16: 8 per group, |d| <= 2^15); the row sort's 2^18 segment
+# holds the key and the 8 u16-packed point planes.
+SORT_SHAPES = {"commit": (5, 18, 12), "msm": (8, 20, 15)}
+SWITCHES = {"rowsort": "ZKDCAP_MSM_ROWSORT", "bitonic": "ZKDCAP_MSM_BITONIC"}
+# CUDA functions of a kernel where they are not named <kernel>_kernel
+KERNEL_FUNCS = {"bitonic_sort": ("bitonic_tile_kernel", "bitonic_pass_kernel")}
 
 
 def fail(msg: str) -> int:
@@ -105,6 +131,13 @@ def wall_s(fn) -> tuple[float, object]:
 
 def bound(n_mont: int, n_bytes: int) -> tuple[float, str]:
     t_ops = n_mont * IMAD_PER_MONT_MUL / IMAD_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int_bound(n_ops: int, n_bytes: int) -> tuple[float, str]:
+    """Bound of a kernel of 32-bit integer operations (compares, selects)."""
+    t_ops = n_ops / IMAD_PER_S
     t_bytes = n_bytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
@@ -146,24 +179,92 @@ def device_breakdown(fn, top: int = 10, ranges=()) -> dict:
     busy_ms = sum(r[2] for r in rows)
     in_ranges = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
                  for e in averages if e.key in ranges and e.device_type == DeviceType.CPU}
-    ours = {}  # the repo's kernels A-E by their CUDA function names
+    ours = {}  # the repo's kernels A-F by their CUDA function names
     for key, count, ms in rows:
         for kname in KERNELS:
-            if f"{kname}_kernel" in key:
+            if any(f in key for f in KERNEL_FUNCS.get(kname, (f"{kname}_kernel",))):
                 acc = ours.setdefault(kname, {"launches": 0, "ms": 0.0})
                 acc["launches"] += count
                 acc["ms"] += ms
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+    gather_ms = sum(ms for key, _, ms in rows if "gather" in key)
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms, "gather_ms": gather_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(r[1] for r in rows), "ranges": in_ranges, "ours": ours,
             "top": [{"kernel": k[:120], "launches": n, "ms": ms} for k, n, ms in rows[:top]]}
 
 
+def sort_checks(record, dev) -> None:
+    """Kernel F against its plain version, exact, at the shapes of a 2^18
+    commitment's and the 2^20 MSM's window groups: the digit sort (|d| and
+    sign<<30 | index), the run-end sort (one key, notend<<30 | index) and,
+    for the commitment, the row sort of the key with the 8 X planes shared
+    by the windows and with per-window Y planes. Each is timed beside its
+    plain version and beside torch.sort plus a gather of every payload."""
+    import torch
+
+    from zkdcap_tpu_torch.utils import device_sort as ds
+
+    src, rep = "zkdcap_tpu_torch/csrc/bitonic_sort.cu", "zkdcap_tpu/utils/device_sort.py:42"
+
+    def library(key, payloads, shared=False):
+        # torch.sort by key (its keys here are below 2^31, where a signed
+        # sort is the unsigned one), then one gather per payload
+        skey, order = torch.sort(key, dim=1)
+        if shared:
+            return skey, [p[order] for p in payloads]
+        return skey, [torch.gather(p, -1, order) for p in payloads]
+
+    def check(name, fn, plain, lib, batch, n, n_ops, moved, shape):
+        got = fn()
+        ms = cuda_ms(fn, 5)
+        plain_s, ref = wall_s(plain)
+        lib_ms = cuda_ms(lib, 5)
+        log_n = n.bit_length() - 1
+        exchanges = batch * (n // 2) * log_n * (log_n + 1) // 2
+        # a compare-exchange: one compare and two selects per operand. The
+        # swaps depend on the key alone, so the same output, ties included,
+        # comes from the network on key + index and one gather of the other
+        # operands: at most two operands go through the network, the rest
+        # are moved once (their bytes are in `moved`)
+        record(name, src, rep, got, ref, ms, plain_s * 1e3, 0, 4 * moved, shape,
+               library_ms=lib_ms, n_ops=exchanges * (1 + 2 * min(n_ops, 2)))
+
+    for label, (wp, log_n, dbits) in SORT_SHAPES.items():
+        n = 1 << log_n
+        digit = torch.randint(-(1 << dbits), 1 << dbits, (wp, n), device=dev, dtype=torch.int32)
+        idx = torch.arange(n, device=dev, dtype=torch.int32)
+        key = digit.abs()
+        pay = torch.where(digit < 0, idx | (1 << 30), idx).to(torch.int32)
+        check(f"bitonic_sort/digits/{label}", lambda: ds.bitonic_sort((key, pay)),
+              lambda: ds.bitonic_sort_plain((key, pay)), lambda: library(key, [pay]),
+              wp, n, 2, 2 * 2 * wp * n, f"digit sort, {wp} x 2^{log_n}, key + payload")
+        notend = (torch.rand(wp, n, device=dev) > 0.1).to(torch.int32)
+        ekey = (notend << 30) | idx
+        check(f"bitonic_sort/ends/{label}", lambda: ds.bitonic_sort((ekey,)),
+              lambda: ds.bitonic_sort_plain((ekey,)), lambda: library(ekey, []),
+              wp, n, 1, 2 * wp * n, f"run-end sort, {wp} x 2^{log_n}, one key")
+        if label != "commit":
+            continue
+        planes = torch.randint(-(1 << 31), 1 << 31, (8, n), device=dev, dtype=torch.int64)
+        planes = planes.to(torch.int32)
+        check("bitonic_sort/rows/shared", lambda: ds.sort_rows_by_key(key, planes, False),
+              lambda: ds.sort_rows_by_key_plain(key, planes, False),
+              lambda: library(key, list(planes), shared=True), wp, n, 9,
+              2 * wp * n + 8 * n + 8 * wp * n,
+              f"row sort, {wp} x 2^{log_n}, key + 8 planes shared by the windows")
+        yplanes = torch.randint(-(1 << 31), 1 << 31, (wp, 8, n), device=dev,
+                                dtype=torch.int64).to(torch.int32)
+        check("bitonic_sort", lambda: ds.sort_rows_by_key(key, yplanes, True),
+              lambda: ds.sort_rows_by_key_plain(key, yplanes, True),
+              lambda: library(key, [yplanes[:, i] for i in range(8)]), wp, n, 9,
+              2 * 9 * wp * n, f"row sort, {wp} x 2^{log_n}, key + 8 planes per window")
+        del planes, yplanes
+    torch.cuda.empty_cache()
+
+
 def prove_phase(say, card: str, dev, srs) -> dict:
     """Step 4: the prover's path, with the launch counts set to 0 first.
-    Returns the readings, the launch counts of the whole step and, under
-    "prove_once", a function that runs one more k = 18 proof (for the
-    profile)."""
+    Returns the readings and the launch counts of the whole step."""
     import torch
 
     from zkdcap_tpu_torch import _build
@@ -257,6 +358,116 @@ def prove_phase(say, card: str, dev, srs) -> dict:
     say(f"prover k={circ.k}: verify_proof accepts ({out['verify_s']:.2f} s on the host) and "
         f"rejects the proof with byte {len(bad) // 2} flipped; peak device memory "
         f"{out['peak_gb']:.1f} GB; launches over step 4 {out['launches']}")
+    return out
+
+
+def service_phase(say, card: str, dev, fixture: dict) -> dict:
+    """Step 5, the slice's main path: ``ECDSAProver(k=18)`` on the real P-256
+    circuit in a fresh params dir, with the launch counts set to 0 first.
+    Returns the readings, the launch counts of the whole step and, under
+    "prove_once", a function that runs one more proof (for the profile)."""
+    import torch
+
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.circuits.p256_ecdsa import ECDSAInput
+    from zkdcap_tpu_torch.plonk import prover as tprover
+    from zkdcap_tpu_torch.runtime import ECDSAProver
+    from zkdcap_tpu_torch.witness import native
+
+    inp = ECDSAInput.from_hex(fixture["msghash"], fixture["signature"], fixture["pubkey"])
+    if [inp.as_instances()] != fixture["instances"]:
+        raise AssertionError("the fixture's instances are not the reference vector's")
+    seed = fixture["seed"].encode()
+    params_dir = ROOT / "build" / "smoke_params"
+    shutil.rmtree(params_dir, ignore_errors=True)
+    out = {}
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # keygen in the fresh dir: SRS, trace + compile, device keygen, save
+    first = ECDSAProver(params_dir=str(params_dir), k=18, device=dev)
+    saves = []
+    save = first._save
+    first._save = lambda *a: saves.append(wall_s(lambda: save(*a))[0])
+    out["keygen_s"], _ = wall_s(first.keygen)
+    out["save_s"] = saves[0]
+    vk = json.loads((params_dir / "vk_k18.json").read_text())
+    if vk != json.loads((ROOT / "assets" / "vk_k18.json").read_text()):
+        raise AssertionError("keygen's vk_k18.json differs from assets/vk_k18.json")
+    out["pk_bytes"] = (params_dir / "pk_k18.npz").stat().st_size
+    say(f"service keygen k=18: {out['keygen_s']:.1f} s, of which the pk's save (deflate level 1) "
+        f"{out['save_s']:.1f} s ({out['pk_bytes'] / 1e9:.2f} GB); vk_k18.json equals "
+        f"assets/vk_k18.json (fixed and permutation commitments, blake2b) ({card})")
+    del first, save
+    torch.cuda.empty_cache()
+
+    # a second prover reloads the saved artifacts
+    prover = ECDSAProver(params_dir=str(params_dir), k=18, device=dev)
+    prover._save = None  # a reload must not regenerate the pk
+    out["reload_s"], _ = wall_s(prover.keygen)
+    out["tape_s"], _ = wall_s(prover._get_tape)
+    say(f"service reload from pk/vk/pinning: {out['reload_s']:.1f} s; witness tape recorded "
+        f"and saved in {out['tape_s']:.1f} s ({card})")
+
+    def prove_once() -> bytes:
+        return prover.create_proof(inp, timing=False, blinding_seed=seed)
+
+    # one untimed proof first (it builds the witness fill's index cache),
+    # then each sort twice, in the order A B C C B A
+    out["warmup_s"], warm = wall_s(prove_once)
+    runs, proofs = {}, [warm]
+    variants = (("default", None), *SWITCHES.items())
+    for label, var in (*variants, *reversed(variants)):
+        if var:
+            os.environ[var] = "1"
+        try:
+            before, replays = dict(_build.launches), native.replays
+            t, proof = wall_s(prove_once)
+            proofs.append(proof)
+        finally:
+            if var:
+                del os.environ[var]
+        if native.replays != replays + 1:
+            raise AssertionError("the native witness evaluator did not run for the proof")
+        run = {"s": t, "runtime_s": dict(prover.last_phases),
+               "rounds_s": dict(tprover.last_phases),
+               "launches": {k: _build.launches[k] - before[k] for k in before}}
+        runs.setdefault(label, []).append(run)
+        say(f"service proof ({label} sorts): {t:.3f} s; runtime phases "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in prover.last_phases.items())
+            + "; create_proof rounds "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in tprover.last_phases.items())
+            + f"; launches {run['launches']} ({card})")
+    for label, rs in runs.items():
+        out[f"prove_s_mean/{label}"] = statistics.fmean(r["s"] for r in rs)
+    say(f"service: after a warm-up proof of {out['warmup_s']:.3f} s, mean of two proofs per "
+        "sort: " + ", ".join(f"{label} {out[f'prove_s_mean/{label}']:.3f} s" for label in runs)
+        + f" ({card})")
+    for label, var in SWITCHES.items():
+        if min(r["launches"]["bitonic_sort"] for r in runs[label]) <= 0:
+            raise AssertionError(f"{var}=1: kernel F did not launch in the proof")
+    if len(set(proofs)) != 1:
+        raise AssertionError("the proofs under the default, row and bitonic sorts differ")
+    proof = proofs[0]
+    out["runs"] = runs
+    out["proof_bytes"] = len(proof)
+    instances = inp.as_instances()
+    out["verify_s"], ok = wall_s(lambda: prover.verify(instances, proof))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    golden = bytes.fromhex((ROOT / "assets" / "p256_proof.hex").read_text().strip()
+                           .removeprefix("0x"))
+    if not ok or prover.verify(instances, bytes(bad)) or not prover.verify(instances, golden):
+        raise AssertionError("verify: the proof, the flipped proof or the golden proof")
+    if fixture["k"] != 18 or proof.hex() != fixture["proof"]:
+        raise AssertionError("the k=18 proof differs from the JAX package's fixture")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = dict(_build.launches)
+    say(f"service: {len(proofs)} proofs identical ({len(proof)} bytes)"
+        + ", equal to the JAX package's k=18 proof in testdata/p256_proof.json"
+        + f"; verify accepts it ({out['verify_s']:.2f} s) and assets/p256_proof.hex, rejects "
+        f"byte {len(bad) // 2} flipped; peak device memory {out['peak_gb']:.1f} GB; launches "
+        f"over step 5 {out['launches']} ({card})")
     out["prove_once"] = prove_once
     return out
 
@@ -307,7 +518,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     report["build_s"] = time.perf_counter() - t0
-    say(f"build: {report['build_s']:.1f} s ({card})")
+    t0 = time.perf_counter()
+    _build.witness_lib()
+    report["witness_build_s"] = time.perf_counter() - t0
+    say(f"build: kernels {report['build_s']:.1f} s, witness evaluator (g++) "
+        f"{report['witness_build_s']:.1f} s ({card})")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
@@ -329,17 +544,19 @@ def main() -> int:
     # -- 2. each kernel against its plain version ----------------------------
     kernels = {}
 
-    def record(name, source, replaces, got, ref, ms, plain_ms, n_mont, n_bytes, shape):
+    def record(name, source, replaces, got, ref, ms, plain_ms, n_mont, n_bytes, shape,
+               library_ms=None, n_ops=None):
         err, bad = max_abs_err(got, ref)
-        b_ms, b_by = bound(n_mont, n_bytes)
+        b_ms, b_by = bound(n_mont, n_bytes) if n_ops is None else int_bound(n_ops, n_bytes)
         kernels[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "also_replaces": ALSO_REPLACES.get(name.split("/")[0], []),
             "launches": 0, "max_abs_err": err, "mismatches": bad, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "shape": shape}
+        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
         say(f"check {name} {shape}: mismatches {bad}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+            f"plain {plain_ms:.1f} ms{lib}, bound {b_ms:.3f} ms ({b_by}) ({card})")
         if bad or err:
             raise AssertionError(f"kernel {name} disagrees with its plain version at {shape}")
 
@@ -447,6 +664,27 @@ def main() -> int:
             del got, out, ref
     del a, b
 
+    # B at M = 1: one mixed-addition step over 2^20 lanes (the contract of
+    # the TPU's single-step kernel, ec_kernels.py:149)
+    B1 = 1 << SIZES["mul_log"]
+    idx = torch.randint(0, n_pool, (B1,), device=dev)
+    rows1 = ek.pack_affine_rows(pool)[idx].T.contiguous()[None]
+    masks1 = (torch.rand(1, 3, B1, device=dev) < torch.tensor([0.6, 0.97, 0.5], device=dev)[:, None])
+    masks1 = masks1.to(torch.int32).contiguous()
+    got = ek.ec_madd_scan_full(G1_SPEC, rows1, masks1)
+    ms = cuda_ms(lambda: ek.ec_madd_scan_full(G1_SPEC, rows1, masks1), 10)
+    plain_s, ref = wall_s(lambda: ek.ec_madd_scan_plain(G1_SPEC, rows1, masks1))
+    n_madd = int((masks1[:, 0] & masks1[:, 1]).sum())
+    n_valid = int(masks1[:, 1].sum())
+    record("madd_scan/M=1", "zkdcap_tpu_torch/csrc/madd_scan.cu",
+           "zkdcap_tpu/curves/ec_kernels.py:149", got, ref, ms, plain_s * 1e3,
+           MADD_MULS * n_madd, n_valid * LIMB_BYTES + B1 * (12 + POINT_BYTES),
+           f"M=1 step x B={B1} lanes, {n_madd} mixed additions")
+    del got, ref, rows1, masks1
+
+    # F: the MSM's sorts at the main path's shapes
+    sort_checks(record, dev)
+
     # -- 3. the main path at k = 18 -------------------------------------------
     tau = _dev_tau()
     k = SIZES["k"]
@@ -501,8 +739,8 @@ def main() -> int:
 
     c0, c0_t = rand_coeffs(n18)
     evals = ntt(BN254_FR, c0_t)
-    got = phase(f"commit_lagrange 2^{k}", lambda: params.commit_lagrange(evals))
-    if got != commit_oracle(c0):
+    commit_pt = phase(f"commit_lagrange 2^{k}", lambda: params.commit_lagrange(evals))
+    if commit_pt != commit_oracle(c0):
         raise AssertionError("commit_lagrange != [f(tau)]G")
     polys = [rand_coeffs(n18) for _ in range(4)]
     got = phase(f"commit_many 4 x 2^{k}", lambda: params.commit_many([p[1] for p in polys]))
@@ -533,6 +771,24 @@ def main() -> int:
         raise AssertionError("msm_device != [sum s_i tau^(i mod 2^k)]G")
     say(f"msm_device 2^{SIZES['msm_log']}: equals [sum_i s_i tau^(i mod 2^{k})]G")
 
+    # the JAX package's sort switches: the same points through kernel F
+    for var in SWITCHES.values():
+        os.environ[var] = "1"
+        try:
+            R_sw = phase(f"msm_device 2^{SIZES['msm_log']} {var}=1",
+                         lambda: msm_device(G1_SPEC, pts20, scal, SIZES["lanes"]), runs=2)
+            c_sw = phase(f"commit_lagrange 2^{k} {var}=1", lambda: params.commit_lagrange(evals),
+                         runs=2)
+        finally:
+            del os.environ[var]
+        if decode_points(G1_SPEC, tuple(r[None] for r in R_sw))[0] != got or c_sw != commit_pt:
+            raise AssertionError(f"{var}=1 changes the MSM's or the commitment's point")
+        launched = [phases[name]["launches"]["bitonic_sort"] for name in list(phases)[-2:]]
+        if min(launched) <= 0:
+            raise AssertionError(f"{var}=1: kernel F did not launch")
+        say(f"{var}=1: msm_device 2^{SIZES['msm_log']} and commit_lagrange 2^{k} equal the "
+            f"default path's points; kernel F launches {launched}")
+
     n22 = 1 << SIZES["ntt_log"]
     a22 = rand_fr((n22,))
     ev = phase(f"ntt 2^{SIZES['ntt_log']}", lambda: ntt(BN254_FR, a22))
@@ -555,14 +811,32 @@ def main() -> int:
     # -- 4. the prover --------------------------------------------------------
     prover = prove_phase(say, card, dev, srs)
     for name in KERNELS:
-        if prover["launches"][name] <= 0:
+        if name != "bitonic_sort" and prover["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the prover's path")
 
-    # -- 5. where the device time goes: one profiled run of four phases --------
+    # -- 5. the slice's main path: the P-256 prover service ------------------------
+    fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json").read_text())
+    service = service_phase(say, card, dev, fixture)
+    for name in KERNELS:
+        if service["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the prover service's path")
+
+    # -- 6. where the device time goes: one profiled run of four phases --------
     breakdown = {}
+    def switched(var, fn):
+        def run():
+            os.environ[var] = "1"
+            try:
+                return fn()
+            finally:
+                del os.environ[var]
+        return run
+
+    msm20 = lambda: msm_device(G1_SPEC, pts20, scal, SIZES["lanes"])  # noqa: E731
     profiled = {
-        f"msm_device 2^{SIZES['msm_log']}":
-            lambda: msm_device(G1_SPEC, pts20, scal, SIZES["lanes"]),
+        f"msm_device 2^{SIZES['msm_log']}": msm20,
+        **{f"msm_device 2^{SIZES['msm_log']} {var}=1": switched(var, msm20)
+           for var in SWITCHES.values()},
         f"commit_lagrange 2^{k}": lambda: params.commit_lagrange(evals),
         f"ntt 2^{SIZES['ntt_log']}": lambda: ntt(BN254_FR, a22),
     }
@@ -573,12 +847,13 @@ def main() -> int:
             continue
         top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.2f} ms"
                         for t in b["top"][:6])
+        ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.2f} ms" for kn, r in b["ours"].items())
         say(f"profile {name}: {b['wall_ms_profiled']:.1f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.1f} ms ({100 * b['busy_share']:.0f}%); "
-            f"top: {top} ({card})")
+            f"kernels A-F: {ours}; top: {top} ({card})")
     # one k = 18 proof, with the plain field additions, subtractions and
     # negations (mont.add/sub/neg) marked as ranges
-    name = f"create_proof k={k}"
+    name = f"ECDSAProver.create_proof k={k}"
     marked = {"add": "plain field add", "sub": "plain field sub", "neg": "plain field neg"}
     originals = {fn: getattr(mont, fn) for fn in marked}
 
@@ -590,8 +865,9 @@ def main() -> int:
 
     for fn, label in marked.items():
         setattr(mont, fn, in_range(label, originals[fn]))
+    prove_once = service.pop("prove_once")
     try:
-        b = breakdown[name] = device_breakdown(prover.pop("prove_once"), top=15,
+        b = breakdown[name] = device_breakdown(prove_once, top=15,
                                                ranges=tuple(marked.values()))
     finally:
         for fn, orig in originals.items():
@@ -605,22 +881,39 @@ def main() -> int:
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
         say(f"profile {name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
-            f"{b['kernel_launches']} kernel launches; ranges: {share}; kernels A-E: {ours}; "
+            f"{b['kernel_launches']} kernel launches; ranges: {share}; kernels A-F: {ours}; "
             f"top: {top} ({card})")
     else:
         say(f"profile {name}: device time not measured (no CUDA events in the trace)")
+    # one k = 18 proof under each sort switch: kernel F's and the gathers'
+    # device time per proof
+    for var in SWITCHES.values():
+        sw_name = f"{name} {var}=1"
+        b = breakdown[sw_name] = device_breakdown(switched(var, prove_once), top=8)
+        if not b["device_busy_ms"]:
+            say(f"profile {sw_name}: device time not measured (no CUDA events in the trace)")
+            continue
+        ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
+        say(f"profile {sw_name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
+            f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
+            f"gathers {b['gather_ms']:.1f} ms; kernels A-F: {ours} ({card})")
+    base = breakdown[name]
+    if base["device_busy_ms"]:
+        say(f"profile {name}: gathers {base['gather_ms']:.1f} ms ({card})")
 
     table = []
     for name, row in kernels.items():
         base = name.split("/")[0]
-        row["launches"] = prover["launches"][base]
+        row["launches"] = service["launches"][base]
         row["launches_engine"] = totals[base]
+        row["launches_layout_prover"] = prover["launches"][base]
     for name in KERNELS:
         row = dict(kernels[name])
         row.pop("shape")
         table.append(row)
     report.update({"kernel_checks": list(kernels.values()), "phases": phases,
-                   "launch_totals": totals, "prover": prover, "breakdown": breakdown})
+                   "launch_totals": totals, "prover": prover, "service": service,
+                   "breakdown": breakdown})
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     say(json.dumps({"kernels": table}))
     say(card)

@@ -8,6 +8,8 @@ discrete logs, so the oracle is one scalar multiplication. The JAX
 Sort ties differ between the packages, so only final points are compared.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -131,3 +133,98 @@ def test_pippenger_uneven_window_groups():
     pts, logs = _points(n, 77, 13)
     scalars = _rand_scalars(n)
     assert _device_msm(pts, scalars, 256, 10) == _oracle(scalars, logs, pts)
+
+
+# --- the JAX package's sort switches (kernel F's plain version) -------------
+#
+# ZKDCAP_MSM_BITONIC=1 and ZKDCAP_MSM_ROWSORT=1 take effect on any device; on
+# the CPU they run kernel F's plain version. monkeypatch keeps every switch
+# inside its test.
+
+SWITCHES = {
+    "bitonic": {"ZKDCAP_MSM_BITONIC": "1"},
+    "rowsort": {"ZKDCAP_MSM_ROWSORT": "1"},
+    "both": {"ZKDCAP_MSM_BITONIC": "1", "ZKDCAP_MSM_ROWSORT": "1"},
+}
+
+
+def _switch(monkeypatch, name):
+    for var in ("ZKDCAP_MSM_BITONIC", "ZKDCAP_MSM_ROWSORT"):
+        monkeypatch.delenv(var, raising=False)
+    if name != "default":
+        for var, val in SWITCHES[name].items():
+            monkeypatch.setenv(var, val)
+
+
+@functools.cache
+def _edge_case(n):
+    """Zero and extreme scalars, infinities among the points, and the
+    expected point, which the JAX package's host MSM confirms."""
+    pts, logs = _points(n)
+    rng = np.random.default_rng(n)
+    scalars = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    scalars[0], scalars[2], scalars[3] = 0, R - 1, 1
+    scalars[n // 2 : n // 2 + 76] = [5] * 76  # one bucket's run across the middle
+    pts[1] = pts[700] = None
+    want = _oracle(scalars, logs, pts)
+    assert want == J_G1.msm(scalars, pts)
+    return pts, scalars, want
+
+
+@pytest.mark.parametrize("switch", sorted(SWITCHES))
+def test_pippenger_switches_match_oracle(monkeypatch, switch):
+    pts, scalars, want = _edge_case(1024)
+    _switch(monkeypatch, switch)
+    assert _device_msm(pts, scalars, 256, 8) == want
+
+
+@pytest.mark.parametrize("switch", ["bitonic", "rowsort"])
+def test_pippenger_switches_all_equal_scalars(monkeypatch, switch):
+    n = 1024
+    pts, logs = _points(n)
+    scalars = [0x1F2E3D4C5B6A79881726354453627180] * n
+    _switch(monkeypatch, switch)
+    assert _device_msm(pts, scalars, 256, 8) == _oracle(scalars, logs, pts)
+
+
+def test_pippenger_rowsort_two_segments(monkeypatch):
+    """N > the row sort's segment: S = 2 segments per window, the tail per
+    (window, segment) and the segment tables added at the end. The segment
+    is set to 2^10 so that the CPU manages it (the card runs S = 4 at 2^20
+    points with the real 2^18 segment)."""
+    from zkdcap_tpu_torch.utils import device_sort
+
+    from zkdcap_tpu_torch.msm.pippenger import _Sorts
+
+    monkeypatch.setattr(device_sort, "ROWS_SORT_SEG", 1 << 10)
+    pts, scalars, want = _edge_case(2048)
+    _switch(monkeypatch, "rowsort")
+    assert _Sorts(2048, 256).S == 2
+    assert _device_msm(pts, scalars, 256, 8) == want
+
+
+def _bucket_tables(pts, scalars, lanes, c):
+    from zkdcap_tpu_torch.curves.ec_kernels import pack_affine_rows
+    from zkdcap_tpu_torch.msm.pippenger import _group_buckets, _signed_digits, _Sorts
+
+    dpts = interop.to_torch(np.asarray(j_encode_points(J_SPEC, pts)), device="cpu")
+    std = mont.encode_ints(BN254_FR, scalars, to_montgomery=False, device="cpu")
+    n = len(pts)
+    digits = _signed_digits(std, c)[:3]
+    T = _group_buckets(G1_SPEC, pack_affine_rows(dpts), digits, lanes, n // lanes,
+                       1 << (c - 1), _Sorts(n, lanes))
+    return decode_points(G1_SPEC, tuple(t.reshape(-1, 16) for t in T))
+
+
+@pytest.mark.parametrize("switch", sorted(SWITCHES))
+def test_pippenger_switches_bucket_tables(monkeypatch, switch):
+    """Every bucket of three windows equals the default path's bucket (the
+    row sort with S = 2 segments)."""
+    from zkdcap_tpu_torch.utils import device_sort
+
+    monkeypatch.setattr(device_sort, "ROWS_SORT_SEG", 1 << 10)
+    pts, scalars, _ = _edge_case(2048)
+    _switch(monkeypatch, "default")
+    want = _bucket_tables(pts, scalars, 256, 8)
+    _switch(monkeypatch, switch)
+    assert _bucket_tables(pts, scalars, 256, 8) == want

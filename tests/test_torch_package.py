@@ -44,7 +44,12 @@ def test_import_pulls_in_no_jax():
         "import zkdcap_tpu_torch.transcript.poseidon, zkdcap_tpu_torch.plonk.cs\n"
         "import zkdcap_tpu_torch.plonk.expression, zkdcap_tpu_torch.plonk.keygen\n"
         "import zkdcap_tpu_torch.plonk.prover, zkdcap_tpu_torch.plonk.verifier\n"
-        "import zkdcap_tpu_torch.testdata.circuits\n"
+        "import zkdcap_tpu_torch.testdata.circuits, zkdcap_tpu_torch.utils.device_sort\n"
+        "import zkdcap_tpu_torch.chips, zkdcap_tpu_torch.chips.bigint, zkdcap_tpu_torch.chips.ecc\n"
+        "import zkdcap_tpu_torch.chips.ecdsa, zkdcap_tpu_torch.chips.range\n"
+        "import zkdcap_tpu_torch.circuits.p256_ecdsa, zkdcap_tpu_torch.metrics\n"
+        "import zkdcap_tpu_torch.witness.tape, zkdcap_tpu_torch.witness.native\n"
+        "import zkdcap_tpu_torch.witness.replay, zkdcap_tpu_torch.runtime.prover\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
         "assert not bad, bad\n"
@@ -70,6 +75,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
     advice = [mont.encode_ints(BN254_FR, col, device="cpu") for col in circ.advice_values]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_proof(params, pk, advice, circ.instances, TranscriptWriter(), blinding_seed=b"s")
+    # the prover service: keygen needs the card unless device="cpu"
+    from zkdcap_tpu_torch.runtime import ECDSAProver
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ECDSAProver(params_dir=str(tmp_path / "params"), k=18).keygen()
 
 
 def test_interop_round_trip_keeps_bit_patterns():
@@ -174,3 +184,37 @@ def test_engine_on_card_matches_cpu(cuda):
         else:
             sc = mont.encode_ints(BN254_FR, vals, device=cuda)
             assert msm_host(pts, sc) == msm_host(pts.to(cpu), sc.to(cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [1, 10, 12, 14])
+def test_kernel_f_matches_plain(cuda, log_n):
+    """Kernel F against its plain version: 1 and 2 operands (one tile, and
+    global passes above the tile), keys at and above 2^31, ties; the row
+    sort with 8 planes, shared and per window, over two segments."""
+    from zkdcap_tpu_torch.utils import device_sort as ds
+
+    gen = torch.Generator().manual_seed(log_n)
+    n = 1 << log_n
+    key = torch.randint(-(1 << 31), 1 << 31, (3, n), generator=gen, dtype=torch.int64)
+    key[1] = key[1] % 5  # ties
+    key = key.to(torch.int32)
+    pay = torch.arange(3 * n, dtype=torch.int32).reshape(3, n)
+    for ops in ((key,), (key, pay)):
+        got = ds.bitonic_sort(tuple(o.to(cuda) for o in ops))
+        ref = ds.bitonic_sort(ops)
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    if log_n < 10:
+        return
+    seg = max(n // 2, 1 << 10)
+    for per_window in (False, True):
+        planes = torch.randint(-(1 << 31), 1 << 31, (3, 8, n) if per_window else (8, n),
+                               generator=gen, dtype=torch.int64).to(torch.int32)
+        old = ds.ROWS_SORT_SEG
+        ds.ROWS_SORT_SEG = seg
+        try:
+            got = ds.sort_rows_by_key(key.to(cuda), planes.to(cuda), per_window)
+            ref = ds.sort_rows_by_key(key, planes, per_window)
+        finally:
+            ds.ROWS_SORT_SEG = old
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))

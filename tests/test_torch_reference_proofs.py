@@ -9,14 +9,27 @@ bytes; this test proves the circuits again with
 ``zkdcap_tpu.plonk.prover.create_proof`` and requires the file to be equal,
 so that it cannot drift from the reference.
 
-Regenerate the fixture after a deliberate change of the proof format with
-``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py``.
+``zkdcap_tpu_torch/testdata/p256_proof.json`` holds the JAX package's proof
+of the P-256 ECDSA circuit on the reference test vector, made through the
+steps of ``zkdcap_tpu.runtime.prover.ECDSAProver.create_proof`` under a fixed
+blinding seed (``p256_fixture``). ``chip_smoke.py`` holds the port's proof of
+the same circuit to it; regenerating it takes the JAX package's CPU path far
+beyond tier-1's budget, so its test is marked ``slow``.
+
+Regenerate the fixtures after a deliberate change of the proof format with
+``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py`` (the small
+proofs) and ``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py
+p256`` (the P-256 proof).
 """
 
+import contextlib
 import json
 import sys
 import tempfile
+import time
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -28,10 +41,14 @@ from zkdcap_tpu.fields import mont as jmont  # noqa: E402
 from zkdcap_tpu.plonk import cs as jcs  # noqa: E402
 from zkdcap_tpu.plonk.keygen import keygen as j_keygen  # noqa: E402
 from zkdcap_tpu.plonk.prover import create_proof as j_create_proof  # noqa: E402
+from zkdcap_tpu.plonk.verifier import verify_proof as j_verify_proof  # noqa: E402
 from zkdcap_tpu.transcript import TranscriptWriter as JTranscriptWriter  # noqa: E402
 from zkdcap_tpu_torch.testdata.circuits import REFERENCE_CASES, padded_advice  # noqa: E402
 
 FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "reference_proofs.json"
+P256_FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json"
+# the P-256 fixture's circuit size and blinding seed
+P256_K, P256_LOOKUP_BITS, P256_SEED = 18, 17, b"p256-reference-vector"
 
 
 def reference_fixture(srs_dir: str) -> dict:
@@ -50,14 +67,132 @@ def reference_fixture(srs_dir: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _dev_tau_commitments():
+    """Commit with the dev SRS's known tau: its G1 points are [tau^i]G, so
+    the MSM of a poly's coefficients against them is [f(tau)]G, one Horner
+    sum and one scalar multiplication. Inside the block the JAX package's
+    ``ParamsKZG.commit``/``commit_many`` compute exactly that, in place of
+    the device MSM, whose CPU path is far too slow for a k = 18 proof; the
+    group elements, and with them the proof bytes, are the same."""
+    from zkdcap_tpu.commit.kzg import ParamsKZG
+    from zkdcap_tpu.commit.srs import _dev_tau
+    from zkdcap_tpu.curves import BN254_G1 as J_G1
+
+    import numpy as np
+
+    tau, r = _dev_tau(), J_FR.p
+
+    def commit(self, coeffs, mesh=None):
+        std = np.asarray(jmont.from_mont(J_FR, coeffs), dtype=np.uint32).astype("<u2")
+        buf = std.tobytes()
+        acc = 0
+        for i in range(std.shape[0] - 1, -1, -1):
+            acc = (acc * tau + int.from_bytes(buf[32 * i : 32 * i + 32], "little")) % r
+        return J_G1.mul(acc, J_G1.g)
+
+    saved = ParamsKZG.commit, ParamsKZG.commit_many
+    ParamsKZG.commit = commit
+    ParamsKZG.commit_many = lambda self, cols, mesh=None: [commit(self, c) for c in cols]
+    try:
+        yield
+    finally:
+        ParamsKZG.commit, ParamsKZG.commit_many = saved
+
+
+@contextlib.contextmanager
+def _eager_quotient():
+    """Run the JAX package's quotient program op by op: compiled as one XLA
+    program for the CPU it asks for about 128 GB of host memory at k = 18;
+    op by op it holds only the arrays its Python code keeps alive. Same
+    operations, same values."""
+    import jax
+
+    from zkdcap_tpu.plonk import prover as jprover
+
+    compiled = jprover._compute_quotient
+
+    def eager(*args, **kwargs):
+        with jax.disable_jit():
+            return compiled(*args, **kwargs)
+
+    jprover._compute_quotient = eager
+    try:
+        yield
+    finally:
+        jprover._compute_quotient = compiled
+
+
+def p256_fixture(params_dir: str, k: int = P256_K, lookup_bits: int = P256_LOOKUP_BITS,
+                 seed: bytes = P256_SEED) -> dict:
+    """The JAX package's proof of the reference test vector, through the
+    steps of ``ECDSAProver.create_proof`` (keygen, tape replay, witness fill,
+    encode, ``create_proof``) with ``blinding_seed`` passed to the prover,
+    the commitments taken from the dev tau (``_dev_tau_commitments``) and
+    the quotient evaluated op by op (``_eager_quotient``). At
+    k = 18 the keygen's commitments must equal ``assets/vk_k18.json``, which
+    the JAX package's device MSM made. The pk stays in memory."""
+    from zkdcap_tpu.circuits.p256_ecdsa import ECDSAInput, trace_inputs
+    from zkdcap_tpu.runtime.prover import ECDSAProver
+    from zkdcap_tpu.witness.native import eval_tape_raw
+
+    from test_p256_circuit import REF_MSGHASH, REF_PUBKEY, REF_SIG
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    inp = ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY)
+    prover = ECDSAProver(params_dir=params_dir, k=k, lookup_bits=lookup_bits)
+    prover._params = prover.verifier_params()  # no G1 powers: the commitments use the tau
+    t0 = time.perf_counter()
+    with _dev_tau_commitments(), _eager_quotient():
+        builder, compiled, sctx = prover._compile()
+        pk = j_keygen(prover._params, compiled.cs, compiled.fixed_values, prover.transcript_kind)
+        if k == 18:
+            vk = json.loads((ROOT / "assets" / "vk_k18.json").read_text())
+            assert [list(c) for c in pk.vk.fixed_commitments] == vk["fixed_commitments"]
+            assert [list(c) for c in pk.vk.permutation_commitments] == \
+                vk["permutation_commitments"]
+        prover._pk, prover._builder, prover._compiled = pk, builder, compiled
+        raw = eval_tape_raw(prover._get_tape(), trace_inputs(inp))
+        assert raw is not None, "the JAX package's native witness evaluator is not built"
+        limbs = builder.witness_limbs(compiled, sctx, raw)
+        instances = [[int.from_bytes(raw[c].tobytes(), "little") for c in sctx.instance_cells]]
+        assert instances[0] == inp.as_instances()
+        adv = jmont.to_mont(J_FR, jnp.asarray(limbs.astype(np.uint32)))
+        proof = j_create_proof(prover._params, pk, [adv[i] for i in range(adv.shape[0])],
+                               instances, JTranscriptWriter(prover.transcript_kind),
+                               blinding_seed=seed)
+    assert j_verify_proof(prover._params, pk.vk, instances, proof)
+    return {"k": k, "lookup_bits": lookup_bits, "seed": seed.decode(),
+            "transcript": prover.transcript_kind, "msghash": REF_MSGHASH, "signature": REF_SIG,
+            "pubkey": REF_PUBKEY, "instances": instances,
+            "proof": proof.hex(), "seconds": round(time.perf_counter() - t0, 1)}
+
+
 def test_fixture_is_current(tmp_path):
     assert json.loads(FIXTURE.read_text()) == reference_fixture(str(tmp_path))
+
+
+@pytest.mark.slow
+def test_p256_fixture_is_current(tmp_path):
+    want = json.loads(P256_FIXTURE.read_text())
+    got = p256_fixture(str(tmp_path), want["k"], want["lookup_bits"], want["seed"].encode())
+    assert {k: v for k, v in got.items() if k != "seconds"} == \
+        {k: v for k, v in want.items() if k != "seconds"}
 
 
 if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, str(ROOT / "tests"))
     with tempfile.TemporaryDirectory() as tmp:
-        FIXTURE.write_text(json.dumps(reference_fixture(tmp), indent=1) + "\n")
-    print(f"wrote {FIXTURE}")
+        if sys.argv[1:2] == ["p256"]:
+            k = int(sys.argv[2]) if len(sys.argv) > 2 else P256_K
+            fixture = p256_fixture(tmp, k, min(P256_LOOKUP_BITS, k - 1))
+            P256_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
+            print(f"wrote {P256_FIXTURE} in {fixture['seconds']} s")
+        else:
+            FIXTURE.write_text(json.dumps(reference_fixture(tmp), indent=1) + "\n")
+            print(f"wrote {FIXTURE}")

@@ -1,0 +1,116 @@
+"""The port's ``ECDSAProver`` against the JAX package's artifacts.
+
+A params dir holding the committed vk and pinning (``assets/vk_k18.json``,
+``assets/pinning_k18.json``, written by the JAX package) gives a port
+prover whose light verifier path (``load_vk`` + ``verify``, host only)
+accepts the committed golden proof ``assets/p256_proof.hex`` for the
+reference test vector and rejects it with one instance changed, as
+``tests/test_golden_proof.py`` does for the JAX package, and accepts the
+JAX package's seeded proof in ``testdata/p256_proof.json``. Options the
+port does not have yet raise ``NotImplementedError``.
+"""
+
+import shutil
+from pathlib import Path
+
+import pytest
+
+from zkdcap_tpu_torch.circuits.p256_ecdsa import ECDSAInput
+from zkdcap_tpu_torch.runtime import ECDSAProver
+
+from test_p256_circuit import REF_MSGHASH, REF_PUBKEY, REF_SIG
+
+ASSETS = Path(__file__).resolve().parent.parent / "assets"
+
+
+@pytest.fixture(scope="module")
+def prover(tmp_path_factory):
+    params = tmp_path_factory.mktemp("params")
+    shutil.copy(ASSETS / "vk_k18.json", params / "vk_k18.json")
+    shutil.copy(ASSETS / "pinning_k18.json", params / "pinning.json")
+    return ECDSAProver(params_dir=str(params), k=18)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    proof = bytes.fromhex((ASSETS / "p256_proof.hex").read_text().strip().removeprefix("0x"))
+    return ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY).as_instances(), proof
+
+
+def test_golden_proof_verifies(prover, golden):
+    instances, proof = golden
+    assert prover.verify(instances, proof)
+    vk = prover.load_vk()
+    assert vk.k == 18 and vk.transcript_kind == "blake2b"
+    assert prover._pk is None  # the light path loads no pk
+
+
+def test_fixture_proof_verifies(prover):
+    """The JAX package's seeded k=18 proof of the reference vector
+    (``testdata/p256_proof.json``, which the port's proof on the card must
+    equal) passes the port's verifier."""
+    import json
+
+    fixture = json.loads((Path(__file__).resolve().parent.parent / "zkdcap_tpu_torch"
+                          / "testdata" / "p256_proof.json").read_text())
+    assert fixture["k"] == prover.k
+    assert fixture["instances"] == [ECDSAInput.from_hex(
+        fixture["msghash"], fixture["signature"], fixture["pubkey"]).as_instances()]
+    assert prover.verify(fixture["instances"][0], bytes.fromhex(fixture["proof"]))
+
+
+def test_golden_proof_rejects_changed_instance(prover, golden):
+    instances, proof = golden
+    bad = list(instances)
+    bad[3] ^= 1
+    assert not prover.verify(bad, proof)
+    flipped = bytearray(proof)
+    flipped[len(flipped) // 2] ^= 1
+    assert not prover.verify(instances, bytes(flipped))
+
+
+def test_unported_options_raise(prover, golden):
+    instances, proof = golden
+    inp = ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ECDSAProver(params_dir=prover.params_dir, multiopen="gwc")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prover.verify(instances, proof, evm=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prover.gen_evm_verifier()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prover.create_proof(inp, shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        prover.create_proof(inp, checkpoint=True)
+
+
+def test_artifact_paths_match_reference(prover):
+    from zkdcap_tpu.runtime.prover import ECDSAProver as JECDSAProver
+
+    ref = JECDSAProver(params_dir=prover.params_dir, k=18)
+    for name in ("pk_path", "vk_path", "pinning_path", "tape_path"):
+        assert getattr(prover, name) == getattr(ref, name)
+    assert (prover.lookup_bits, prover.transcript_kind) == (ref.lookup_bits, ref.transcript_kind)
+
+
+def test_pk_file_is_the_reference_format(tmp_path):
+    """The pk is written as np.savez_compressed writes it (a zip of deflated
+    .npy members), at a lower deflate level; np.load reads it back."""
+    import zipfile
+
+    import numpy as np
+
+    from zkdcap_tpu_torch.runtime.prover import _savez_deflated
+
+    rng = np.random.default_rng(3)
+    arrays = {"fixed_lagrange": rng.integers(0, 1 << 16, (2, 64, 16), dtype=np.uint32),
+              "l0_ext": rng.integers(0, 1 << 16, (256, 16), dtype=np.uint32)}
+    _savez_deflated(str(tmp_path / "port.npz"), arrays)
+    np.savez_compressed(tmp_path / "numpy.npz", **arrays)
+    with np.load(tmp_path / "port.npz") as data:
+        assert sorted(data.files) == sorted(arrays)
+        assert all(np.array_equal(data[k], v) and data[k].dtype == v.dtype
+                   for k, v in arrays.items())
+    members = [[(i.filename, i.compress_type) for i in zipfile.ZipFile(tmp_path / f).infolist()]
+               for f in ("port.npz", "numpy.npz")]
+    assert members[0] == members[1]

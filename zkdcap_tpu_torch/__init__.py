@@ -6,15 +6,21 @@ Pippenger MSM (``msm``) and the dev SRS with KZG commitments (``commit``).
 Slice 2 is the PLONK prover on top of it: polynomial utilities (``poly``),
 the host transcripts (``transcript``), the BN254 pairing (``curves.pairing``),
 SHPLONK (``commit.shplonk``), and ``plonk``: the constraint system,
-``keygen``, ``create_proof`` and the host ``verify_proof``. The JAX package
+``keygen``, ``create_proof`` and the host ``verify_proof``. Slice 3 is the
+P-256 ECDSA prover service on the real k = 18 circuit: ``runtime.ECDSAProver``
+(keygen with an artifact cache in the JAX package's file formats, proofs,
+host verify) over copies of the host circuit stack (``chips``, ``circuits``,
+``witness`` with its C++ evaluator in ``csrc_host/``, ``metrics``), and the
+MSM's opt-in bitonic sorts (``utils.device_sort``). The JAX package
 ``zkdcap_tpu`` is the reference it is held against; this package imports
 neither it nor JAX.
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise. On CUDA
-tensors the five hand-written kernels in ``csrc/`` run (built at first use
+tensors the six hand-written kernels in ``csrc/`` run (built at first use
 by ``_build``): the NTT pass (A), the MSM's mixed-add scan (B), complete
-addition with select (C), the window join (D) and the elementwise
-Montgomery product (E), which every field product goes through. On CPU
+addition with select (C), the window join (D), the elementwise Montgomery
+product (E), which every field product goes through, and the bitonic sort
+(F) behind ``ZKDCAP_MSM_BITONIC=1`` and ``ZKDCAP_MSM_ROWSORT=1``. On CPU
 tensors their plain torch versions run.
 """

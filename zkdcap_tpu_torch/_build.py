@@ -8,6 +8,10 @@ when a source or a flag changes (a hash of both sits beside the library).
 
 Each kernel wrapper counts its launches in :data:`launches`, so that a run
 can show that its main path went through the kernels.
+
+The host witness evaluator (``csrc_host/witness_eval.cpp``, the C++ replay
+of a recorded witness tape) is built the same way by ``g++`` into
+``build/host/libwitness_eval.so``: :func:`witness_lib`.
 """
 
 from __future__ import annotations
@@ -24,7 +28,13 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+CSRC_HOST = Path(__file__).resolve().parent / "csrc_host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
+# The JAX package's native/Makefile adds -fopenmp; the card's machine has no
+# libgomp to link, so the evaluator's one OpenMP loop (the output encode) runs
+# on one thread here.
+HOST_CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 LIB_NAME = "libzkdcap_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,12 +54,16 @@ SIGNATURES = {
     "zk_ec_add_select": [_P] * 10 + [_I, _I, _P],
     # tx, ty, tz, ox, oy, oz, windows, window_bits, stream
     "zk_window_join": [_P] * 6 + [_I, _I, _P],
+    # in_ptrs, out_ptrs, in_ws, in_ss, out_ws, out_ss (host arrays), n_ops,
+    # batches, segments, log_n, stream
+    "zk_bitonic_sort": [_P] * 6 + [_I, _I, _I, _I, _P],
 }
 
 launches = {"ntt_pass": 0, "madd_scan": 0, "ec_add_select": 0, "window_join": 0,
-            "mont_mul": 0}
+            "mont_mul": 0, "bitonic_sort": 0}
 
 _lib = None
+_witness_lib = None
 _lock = threading.Lock()
 build_log = ""
 
@@ -153,3 +167,57 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
                 or t.data_ptr() % 16):
             raise ValueError(f"{name}: expects contiguous aligned int32 tensors on {dev}, "
                              f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's model and feature flags (Linux), or the machine name."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        import platform
+
+        return platform.machine().encode()
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))]
+    return "\n".join(dict.fromkeys(keep)).encode()
+
+
+def build_witness_eval() -> Path:
+    """Compile csrc_host/witness_eval.cpp with g++ unless the library is
+    current; returns its path."""
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = CSRC_HOST / "witness_eval.cpp"
+    lib_path = HOST_BUILD_DIR / "libwitness_eval.so"
+    stamp = HOST_BUILD_DIR / "witness_eval.sha256"
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(src.read_bytes())
+    h.update(_host_cpu())  # -march=native: a library built on another CPU is rebuilt
+    digest = h.hexdigest()
+    if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib_path
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found: the witness evaluator is built at first use")
+    fd, tmp = tempfile.mkstemp(prefix="libwitness_eval-", suffix=".so", dir=HOST_BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", tmp, str(src)],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"g++ failed for {src.name}:\n{res.stdout}{res.stderr}")
+        os.replace(tmp, lib_path)
+        stamp.write_text(digest)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def witness_lib() -> ctypes.CDLL:
+    """The loaded witness evaluator (built on first call)."""
+    global _witness_lib
+    with _lock:
+        if _witness_lib is None:
+            handle = ctypes.CDLL(str(build_witness_eval()))
+            handle.witness_eval.restype = ctypes.c_int
+            _witness_lib = handle
+    return _witness_lib

@@ -1,7 +1,8 @@
-"""Host-side (Python bigint) BN254 G1 arithmetic: the trusted oracle.
+"""Host-side (Python bigint) short-Weierstrass arithmetic: the trusted oracle.
 
-A copy of the part of ``zkdcap_tpu/curves/host_curve.py`` that point
-encoding, SRS generation and the on-card checks use. Points are affine
+A copy of ``zkdcap_tpu/curves/host_curve.py``: BN254 G1 for point encoding,
+SRS generation and the on-card checks, and secp256r1 (P-256) with the host
+ECDSA verify for the ECC chip and the P-256 circuit. Points are affine
 tuples ``(x, y)`` of Python ints, with ``None`` as the point at infinity.
 """
 
@@ -136,3 +137,33 @@ BN254_G1 = CurveParams(
     gx=1,
     gy=2,
 )
+
+
+# secp256r1 / NIST P-256: the attestation-signature curve
+# (capability the reference forked halo2-lib for, SURVEY.md §0).
+SECP256R1 = CurveParams(
+    name="secp256r1",
+    p=0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF,
+    a=0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFC,
+    b=0x5AC635D8AA3A93E7B3EBBD55769886BC651D06B0CC53B0F63BCE3C3E27D2604B,
+    n=0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551,
+    gx=0x6B17D1F2E12C4247F8BCE6E563A440F277037D812DEB33A0F4A13945D898C296,
+    gy=0x4FE342E2FE1A7F9B8EE7EB4A7C0F9E162BCE33576B315ECECBB6406837BF51F5,
+)
+
+
+def p256_ecdsa_verify(msghash: int, r: int, s: int, pub: Affine) -> bool:
+    """Trusted host P-256 ECDSA verify (oracle role of the `p256` crate,
+    `crates/p256-ecdsa/src/base.rs:287-306`)."""
+    c = SECP256R1
+    if not (1 <= r < c.n and 1 <= s < c.n):
+        return False
+    if pub is None or not c.is_on_curve(pub):
+        return False
+    w = pow(s, -1, c.n)
+    u1 = (msghash % c.n) * w % c.n
+    u2 = r * w % c.n
+    pt = c.add(c.mul(u1, c.g), c.mul(u2, pub))
+    if pt is None:
+        return False
+    return pt[0] % c.n == r % c.n

@@ -18,6 +18,13 @@ ceil(256/c) windows, 2^(c-1) buckets each):
    suffix scans);
 8. the window join (kernel D).
 
+Two switches of the JAX package, off by default there and here, change
+stage 2 (``_Sorts``): ``ZKDCAP_MSM_BITONIC=1`` sorts the digits (and the
+run ends of stage 4) with kernel F, ``ZKDCAP_MSM_ROWSORT=1`` sorts the
+packed point planes with the digits (kernel F with 9 operands, Y negated
+before the sort), so that no gather follows; above 2^18 points it sorts
+per segment and stages 4-6 run per (window, segment).
+
 Digit-0 points and encoded infinities become the identity (0 : 1 : 0),
 which the complete formulas absorb. Sort ties are not ordered, so the
 sorted stream may differ from the JAX package's; the buckets and the result
@@ -25,6 +32,8 @@ do not.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -37,8 +46,11 @@ from ..curves.ec_kernels import (
 )
 from ..fields import mont
 from ..fields.params import BN254_FR, NUM_LIMBS
+from ..utils import device_sort
+from ..utils.device_sort import bitonic_sort, rows_sort_segments, sort_rows_by_key, sort_supported
 
 L = NUM_LIMBS
+_IDX_BITS = 30  # the sign packs above the index in the digit sort's payload
 # Point counts at or below this take the fixed-window ladder (msm_ladder).
 SMALL_MSM_MAX = 512
 
@@ -164,44 +176,113 @@ def _hs_levels(vd: torch.Tensor, lanes: int) -> int:
     return sum(1 for s in range(n_levels) if max_run > (1 << s))
 
 
-def _group_buckets(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
-                   G: int, M: int, nb: int) -> Point:
-    """(WP, N) signed digits -> (WP, nb, 16) bucket sums (slot i = bucket i+1)."""
-    WP, N = d_grp.shape
-    B = WP * G
-    K = min(N, G + nb)
-    dev = rows.device
+def neg_packed_y(f, y_pm: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """f the base field; y_pm (8, N) u16-packed Montgomery Y planes; sign
+    (WP, N) bool. Returns (WP, 8, N): p - y where sign (one borrow chain; y < p so no net
+    borrow; y = 0 maps to p, but those rows are encoded infinities whose
+    sort key is 0, never selected by the scan)."""
+    v = y_pm.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([v & 0xFFFF, v >> 16], 1).reshape(2 * 8, -1)
+    p_l = [int(x) for x in f.p_limbs]
+    neg, bw = [], torch.zeros_like(limbs[0])
+    for j in range(16):
+        t = p_l[j] - limbs[j] - bw
+        neg.append(t & 0xFFFF)
+        bw = (t >> 16) & 1
+    words = torch.stack([neg[2 * j] | (neg[2 * j + 1] << 16) for j in range(8)])
+    nplanes = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    return torch.where(sign[:, None, :], nplanes[None], y_pm[None])
 
-    # -- sort by |digit| and gather the packed rows in sorted order ---------
-    skey, order = torch.sort(d_grp.abs(), dim=1)
-    negate = torch.gather(d_grp < 0, 1, order)
-    g = rows[order]  # (WP, N, 16)
-    valid = (skey != 0) & (g != 0).any(-1)
+
+class _Sorts:
+    """Which sorts an MSM runs: the JAX package's switches, read at call time
+    from the same environment variables. ``ZKDCAP_MSM_BITONIC=1`` runs the
+    digit sort and the run-end sort through kernel F; ``ZKDCAP_MSM_ROWSORT=1``
+    runs the fused digit + point-row sort (kernel F with 9 operands), so no
+    row gather follows. Off the card they run kernel F's plain version. The
+    default is ``torch.sort`` and the packed-row gather."""
+
+    def __init__(self, N: int, G: int):
+        env = os.environ.get
+        seg = min(N, device_sort.ROWS_SORT_SEG)
+        S = rows_sort_segments(N)
+        self.rows = (sort_supported(seg, n_ops=9) and N % seg == 0
+                     and G % S == 0 and env("ZKDCAP_MSM_ROWSORT", "0") == "1")
+        self.S = S if self.rows else 1
+        bitonic_ok = env("ZKDCAP_MSM_BITONIC", "0") == "1"
+        self.digits = sort_supported(N) and bitonic_ok
+        self.ends = sort_supported(N // self.S) and bitonic_ok
+
+
+def _group_buckets(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
+                   G: int, M: int, nb: int, sorts: _Sorts) -> Point:
+    """(WP, N) signed digits -> (WP, nb, 16) bucket sums (slot i = bucket i+1).
+
+    With the row sort each window splits into S segments of N / S points
+    (G / S lanes), sorted independently: the tail below runs per (window,
+    segment) row and the S bucket tables of a window are added at the end."""
+    WP, N = d_grp.shape
+    S = sorts.S
+    WS, n_seg, G_seg = WP * S, N // S, G // S
+    B = WP * G
+    K = min(n_seg, G_seg + nb)
+    dev = rows.device
 
     def to_mb(a):  # (WP, N) -> (M, B), column b = w*G + lane
         return a.reshape(WP, G, M).permute(2, 0, 1).reshape(M, B)
 
-    Pm = g.reshape(WP, G, M, L).permute(2, 3, 0, 1).reshape(M, L, B).contiguous()
+    if sorts.rows:
+        # -- fused digit + row sort: no gather ------------------------------
+        rows_pm = rows.T.contiguous()  # (16, N) plane-major
+        key = torch.where((rows == 0).all(-1)[None], 0, d_grp.abs()).to(torch.int32)
+        skey, sx = sort_rows_by_key(key, rows_pm[:8], per_window=False)
+        y_neg = neg_packed_y(spec.field, rows_pm[8:], d_grp < 0)  # (WP, 8, N)
+        _, sy = sort_rows_by_key(key, y_neg, per_window=True)
+        skey = skey.to(torch.int64)
+        valid = skey != 0  # 0 = digit 0 or infinity
+        Pm = torch.cat([sx, sy], 1).reshape(WP, L, G, M).permute(3, 1, 0, 2).reshape(M, L, B)
+        negate = torch.zeros_like(valid)  # Y is negated inside the sorted stream
+    else:
+        # -- sort by |digit|, then gather the packed rows in sorted order ---
+        if sorts.digits:
+            idx = torch.arange(N, dtype=torch.int32, device=dev)
+            payload = torch.where(d_grp < 0, idx | (1 << _IDX_BITS), idx).to(torch.int32)
+            skey, sp = bitonic_sort((d_grp.abs().to(torch.int32), payload))
+            skey, sp = skey.to(torch.int64), sp.to(torch.int64)
+            order, negate = sp & ((1 << _IDX_BITS) - 1), (sp >> _IDX_BITS) == 1
+        else:
+            skey, order = torch.sort(d_grp.abs(), dim=1)
+            negate = torch.gather(d_grp < 0, 1, order)
+        g = rows[order]  # (WP, N, 16)
+        valid = (skey != 0) & (g != 0).any(-1)
+        Pm = g.reshape(WP, G, M, L).permute(2, 3, 0, 1).reshape(M, L, B)
     dm = to_mb(skey)
     same = torch.zeros_like(dm, dtype=torch.bool)
     same[1:] = dm[1:] == dm[:-1]
     masks = torch.stack([same, to_mb(valid), to_mb(negate)], 1).to(torch.int32).contiguous()
 
     # -- segmented scan (kernel B) -------------------------------------------
-    oX, oY, oZ = ec_madd_scan_full(spec, Pm, masks)
+    oX, oY, oZ = ec_madd_scan_full(spec, Pm.contiguous(), masks)
 
-    # -- run-end compaction ----------------------------------------------------
-    idxN = torch.arange(N, device=dev)
-    d_next = torch.cat([skey[:, 1:], skey.new_full((WP, 1), -1)], 1)
-    is_end = ((idxN % M) == M - 1)[None] | (skey != d_next)
+    # -- run-end compaction, per (window, segment) row -------------------------
+    skey = skey.reshape(WS, n_seg)
+    idxS = torch.arange(n_seg, device=dev)
+    d_next = torch.cat([skey[:, 1:], skey.new_full((WS, 1), -1)], 1)
+    is_end = ((idxS % M) == M - 1)[None] | (skey != d_next)
     n_ends = is_end.sum(1)
-    cidx = torch.sort((~is_end).to(torch.int32), dim=1, stable=True).indices[:, :K]
+    if sorts.ends:
+        # one u32 key, the end flag above the index: ends first, in order
+        ekey = ((~is_end).to(torch.int32) << _IDX_BITS) | idxS.to(torch.int32)[None]
+        (ekey,) = bitonic_sort((ekey,))
+        cidx = (ekey & ((1 << _IDX_BITS) - 1)).to(torch.int64)[:, :K]
+    else:
+        cidx = torch.sort((~is_end).to(torch.int32), dim=1, stable=True).indices[:, :K]
     idxK = torch.arange(K, device=dev)
     dead = idxK[None] >= n_ends[:, None]
     vd = torch.where(dead, 0, torch.gather(skey, 1, cidx))
     m_idx = cidx % M
-    b_idx = cidx // M + torch.arange(WP, device=dev)[:, None] * G
-    C = tuple(o[m_idx, :, b_idx] for o in (oX, oY, oZ))  # (WP, K, 16)
+    b_idx = cidx // M + torch.arange(WS, device=dev)[:, None] * G_seg
+    C = tuple(o[m_idx, :, b_idx] for o in (oX, oY, oZ))  # (WS, K, 16)
     deadc = (dead | (vd == 0))[..., None]
     one = mont.one_mont(spec.field, (), dev)
     C = (torch.where(deadc, 0, C[0]), torch.where(deadc, one, C[1]),
@@ -210,21 +291,24 @@ def _group_buckets(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
 
     # -- segmented Hillis-Steele over the run partials --------------------------
     nz = vd != 0
-    pos = idxK[None].expand(WP, K)
-    for s in range(_hs_levels(vd, G)):
+    pos = idxK[None].expand(WS, K)
+    for s in range(_hs_levels(vd, G_seg)):
         shift = 1 << s
-        inf = ec_inf(spec, (WP, shift), dev)
+        inf = ec_inf(spec, (WS, shift), dev)
         prev = tuple(torch.cat([i, c[:, : K - shift]], 1) for i, c in zip(inf, C))
-        pd = torch.cat([vd.new_zeros(WP, shift), vd[:, : K - shift]], 1)
+        pd = torch.cat([vd.new_zeros(WS, shift), vd[:, : K - shift]], 1)
         ok = (pos >= shift) & (pd == vd) & nz
         C = _add(spec, C, prev, ok.to(torch.int32))
 
     # -- deposit run totals into dense buckets --------------------------------
-    vd_next = torch.cat([vd[:, 1:], vd.new_full((WP, 1), -1)], 1)
+    vd_next = torch.cat([vd[:, 1:], vd.new_full((WS, 1), -1)], 1)
     slot = torch.where((vd != vd_next) & (vd > 0), vd - 1, nb)
-    idx = slot[..., None].expand(WP, K, L)
-    tables = ec_inf(spec, (WP, nb + 1), dev)
-    return tuple(t.scatter(1, idx, c)[:, :nb] for t, c in zip(tables, C))
+    idx = slot[..., None].expand(WS, K, L)
+    tables = ec_inf(spec, (WS, nb + 1), dev)
+    T = tuple(t.scatter(1, idx, c)[:, :nb] for t, c in zip(tables, C))
+    if S > 1:  # add the S segment tables of every window
+        T = _tree_sum(spec, tuple(t.reshape(WP, S, nb, L) for t in T), 1)
+    return T
 
 
 def msm_device(spec: CurveSpec, points: torch.Tensor, scalars_std: torch.Tensor,
@@ -245,7 +329,8 @@ def msm_device(spec: CurveSpec, points: torch.Tensor, scalars_std: torch.Tensor,
     digits = _signed_digits(scalars_std, c)
     WP = _window_parallel(n_windows, G)
     rows = pack_affine_rows(points)
-    parts = [_group_buckets(spec, rows, digits[w : w + WP], G, M, nb)
+    sorts = _Sorts(N, G)
+    parts = [_group_buckets(spec, rows, digits[w : w + WP], G, M, nb, sorts)
              for w in range(0, n_windows, WP)]
     buckets = tuple(torch.cat([p[i] for p in parts]) for i in range(3))  # (W, nb, 16)
 
