@@ -6,18 +6,23 @@
 Needs one CUDA card (an H100 for the numbers the repo keeps) and nvcc; it
 fails, printing no result, without them or outside a checkout of the repo.
 
-1. builds the six CUDA kernels from ``zkdcap_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and the host witness evaluator (g++);
+1. builds the seven CUDA kernels from ``zkdcap_tpu_torch/csrc`` (one nvcc
+   per source, in parallel) and the host witness evaluator (g++);
 2. runs each kernel and its plain torch version on the same seeded inputs at
-   the main path's shapes and requires an exact match, timing both (and,
+   the main paths' shapes and requires an exact match, timing both (and,
    for kernel F, the PyTorch sort + gather that computes the same function);
+   kernel G at the top stages of the DCAP proof's flat 2^17 (22 advice
+   columns) and 2^19 transforms and of a 2^24 transform;
 3. drives the commitment engine at k = 18 through its entry points, each
    phase against an independent host oracle: gen_srs(18), commit_lagrange
    and commit_many of 2^18-point polys, the Domain(18, 20) coset round trip,
    a 2^20-point msm_device at 16384 lanes, and a 2^22-point NTT; then the
    2^20 MSM and the 2^18 commitment again under ``ZKDCAP_MSM_ROWSORT=1`` and
-   ``ZKDCAP_MSM_BITONIC=1``, equal to the default path's points; every
-   kernel's launch count must rise during this phase;
+   ``ZKDCAP_MSM_BITONIC=1``, equal to the default path's points; the flat
+   NTT: 2^23 and 2^24 round trips and sparse polys against host sums, the
+   2^22 NTT under ``ZKDCAP_NO_FOUR_STEP=1`` equal to the four-step result,
+   and the Domain(21, 23) coset round trip; every kernel's launch count must
+   rise during this phase;
 4. drives the prover: the small circuits of the CPU tests must prove the
    bytes of ``zkdcap_tpu_torch/testdata/reference_proofs.json`` (the JAX
    package's proofs), then a circuit with the k = 18 P-256 ECDSA circuit's
@@ -34,10 +39,19 @@ fails, printing no result, without them or outside a checkout of the repo.
    ``zkdcap_tpu_torch/testdata/p256_proof.json``, accepted by ``verify``
    (and a flipped byte rejected), with the native witness evaluator run for
    each; ``assets/p256_proof.hex`` must verify; kernels A-F must launch;
-6. profiles the engine's phases (the 2^20 MSM also under each sort switch)
-   and one k = 18 P-256 proof under each of the three sorts with
-   torch.profiler;
-7. prints the kernel table as one JSON line, the card's name and power
+6. drives this slice's main path, the DCAP prover ``DcapProver(k=17)`` on
+   the demo input, in a fresh params dir: keygen (SRS, trace + compile,
+   device keygen and the pk's save timed apart; its vk must hold the JAX
+   package's commitments of ``zkdcap_tpu_torch/testdata/dcap_proof.json``),
+   one untimed proof, then two proofs with the default NTT and two under
+   ``ZKDCAP_NO_FOUR_STEP=1`` (order A B B A), all with the fixture's seed
+   and equal to its bytes, with the native evaluator run for each and
+   kernel G launched in each switched proof; ``verify`` accepts (and a
+   flipped byte fails); kernels A-E and G must launch;
+7. profiles the engine's phases (the 2^20 MSM also under each sort switch),
+   one k = 18 P-256 proof under each of the three sorts and one DCAP proof
+   under each NTT setting with torch.profiler;
+8. prints the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Everything it prints also lands in ``build/chip_smoke.json``.
@@ -86,7 +100,16 @@ ALSO_REPLACES = {
 SIZES = {"k": 18, "ext_k": 20, "msm_log": 20, "lanes": 16384, "ntt_log": 22,
          "pass_logs": (9, 10, 11), "scan": (64, 8 * 16384), "hs_lanes": 8 * (16384 + 32768),
          "join": (16, 16), "pool": 4096, "mul_log": 20, "proofs": 3}
-KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul", "bitonic_sort")
+KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul", "bitonic_sort",
+           "butterfly")
+# Kernel G's shapes: (rows, log n) of the top stage of the DCAP proof's flat
+# transforms under ZKDCAP_NO_FOUR_STEP=1 (round 1's intt_many of the 22
+# advice columns at 2^17, one extended-coset column at 2^19) and of a 2^24
+# transform, the flat path's size above the four-step limit
+BUTTERFLY_SHAPES = {"butterfly/2^17": (22, 17), "butterfly": (1, 19), "butterfly/2^24": (1, 24)}
+# the flat path's sizes in the engine step, and Domain(21, 23)
+FLAT_LOGS, FLAT_DOMAIN = (23, 24), (21, 23)
+NO_FOUR_STEP = "ZKDCAP_NO_FOUR_STEP"
 # the blinding seed of the k = 18 layout proofs
 PROOF_SEED = b"chip-smoke-k18"
 # Kernel F's shapes on the main path: the window groups of a 2^18 commitment
@@ -179,7 +202,7 @@ def device_breakdown(fn, top: int = 10, ranges=()) -> dict:
     busy_ms = sum(r[2] for r in rows)
     in_ranges = {e.key: {"calls": e.count, "device_ms": e.device_time_total / 1e3}
                  for e in averages if e.key in ranges and e.device_type == DeviceType.CPU}
-    ours = {}  # the repo's kernels A-F by their CUDA function names
+    ours = {}  # the repo's kernels A-G by their CUDA function names
     for key, count, ms in rows:
         for kname in KERNELS:
             if any(f in key for f in KERNEL_FUNCS.get(kname, (f"{kname}_kernel",))):
@@ -472,6 +495,104 @@ def service_phase(say, card: str, dev, fixture: dict) -> dict:
     return out
 
 
+def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
+    """Step 6, this slice's main path: ``DcapProver(k=17)`` on the demo
+    input in a fresh params dir, with the launch counts set to 0 first."""
+    import torch
+
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.circuits.dcap import load_demo_input
+    from zkdcap_tpu_torch.plonk import prover as tprover
+    from zkdcap_tpu_torch.runtime import DcapProver
+    from zkdcap_tpu_torch.witness import native
+
+    params_dir = ROOT / "build" / "smoke_params_dcap"
+    shutil.rmtree(params_dir, ignore_errors=True)
+    out = {}
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    # keygen in the fresh dir: SRS, trace + compile, device keygen, pk save
+    prover = DcapProver(params_dir=str(params_dir), k=fixture["k"], device=dev)
+    out["keygen_s"], _ = wall_s(prover.keygen)
+    out["keygen_phases_s"] = dict(prover.keygen_phases)
+    out["pk_bytes"] = Path(prover.pk_path).stat().st_size
+    if json.loads(Path(prover.vk_path).read_text()) != fixture["vk"]:
+        raise AssertionError("keygen's dcap_vk_k17.json differs from the JAX package's vk "
+                             "in testdata/dcap_proof.json")
+    pin = json.loads(Path(prover.pinning_path).read_text())
+    cs = prover._compiled.cs
+    out["layout"] = {"advice": cs.num_advice, "fixed": cs.num_fixed,
+                     "permuted": len(cs.permutation_columns), "lookups": len(cs.lookups),
+                     "extended_k": cs.extended_k(prover.k), "cells": pin["num_cells"]}
+    say(f"dcap keygen k={prover.k}: {out['keygen_s']:.1f} s: "
+        + ", ".join(f"{ph} {v:.1f} s" for ph, v in out["keygen_phases_s"].items())
+        + f" (deflate level 1, {out['pk_bytes'] / 1e9:.2f} GB); layout {out['layout']}; "
+        "dcap_vk_k17.json holds the JAX package's commitments (testdata/dcap_proof.json) "
+        f"({card})")
+    out["tape_s"], _ = wall_s(prover._get_tape)
+    say(f"dcap witness tape recorded and saved in {out['tape_s']:.1f} s ({card})")
+
+    inp, seed = load_demo_input(), fixture["seed"].encode()
+
+    def prove_once() -> bytes:
+        return prover.create_proof(inp, timing=False, blinding_seed=seed)
+
+    # one untimed proof first, then the default NTT and the flat path twice
+    # each, in the order A B B A, all under the fixture's seed
+    out["warmup_s"], warm = wall_s(prove_once)
+    runs, proofs = {}, [warm]
+    for label, var in (("default", None), ("flat", NO_FOUR_STEP), ("flat", NO_FOUR_STEP),
+                       ("default", None)):
+        if var:
+            os.environ[var] = "1"
+        try:
+            before, replays = dict(_build.launches), native.replays
+            t, proof = wall_s(prove_once)
+            proofs.append(proof)
+        finally:
+            if var:
+                del os.environ[var]
+        if native.replays != replays + 1:
+            raise AssertionError("the native witness evaluator did not run for the DCAP proof")
+        run = {"s": t, "runtime_s": dict(prover.last_phases),
+               "rounds_s": dict(tprover.last_phases),
+               "launches": {k: _build.launches[k] - before[k] for k in before}}
+        runs.setdefault(label, []).append(run)
+        say(f"dcap proof ({label} NTT): {t:.3f} s; runtime phases "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in prover.last_phases.items())
+            + "; create_proof rounds "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in tprover.last_phases.items())
+            + f"; launches {run['launches']} ({card})")
+    for label, rs in runs.items():
+        out[f"prove_s_mean/{label}"] = statistics.fmean(r["s"] for r in rs)
+    say(f"dcap: after a warm-up proof of {out['warmup_s']:.3f} s, mean of two proofs: "
+        + ", ".join(f"{label} {out[f'prove_s_mean/{label}']:.3f} s" for label in runs)
+        + f" ({card})")
+    if min(r["launches"]["butterfly"] for r in runs["flat"]) <= 0:
+        raise AssertionError(f"{NO_FOUR_STEP}=1: kernel G did not launch in the DCAP proof")
+    if len(set(proofs)) != 1:
+        raise AssertionError("the DCAP proofs under the default and the flat NTT differ")
+    proof = proofs[0]
+    if proof.hex() != fixture["proof"]:
+        raise AssertionError("the DCAP proof differs from the JAX package's fixture")
+    out["runs"] = runs
+    out["proof_bytes"] = len(proof)
+    out["verify_s"], ok = wall_s(lambda: prover.verify(proof))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    if not ok or prover.verify(bytes(bad)):
+        raise AssertionError("verify: the DCAP proof or the flipped proof")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = dict(_build.launches)
+    say(f"dcap: {len(proofs)} proofs identical ({len(proof)} bytes), equal to the JAX "
+        f"package's proof in testdata/dcap_proof.json; verify accepts it "
+        f"({out['verify_s']:.2f} s) and rejects byte {len(bad) // 2} flipped; peak device "
+        f"memory {out['peak_gb']:.1f} GB; launches over step 6 {out['launches']} ({card})")
+    out["prove_once"] = prove_once
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -493,10 +614,11 @@ def main() -> int:
     from zkdcap_tpu_torch.curves.device_g1 import (
         G1_SPEC, affine_to_projective, decode_points, encode_points)
     from zkdcap_tpu_torch.fields import BN254_FQ, BN254_FR, mont, mul_kernels
+    from zkdcap_tpu_torch.fields.butterfly_kernels import butterfly, butterfly_plain
     from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
     from zkdcap_tpu_torch.msm import msm_device
     from zkdcap_tpu_torch.ntt import Domain, intt, ntt
-    from zkdcap_tpu_torch.ntt.ntt import _four_step_twiddles, _pass_twiddles
+    from zkdcap_tpu_torch.ntt.ntt import _flat_twiddles, _four_step_twiddles, _pass_twiddles
 
     dev = torch.device("cuda")
     out_dir = ROOT / "build"
@@ -685,6 +807,24 @@ def main() -> int:
     # F: the MSM's sorts at the main path's shapes
     sort_checks(record, dev)
 
+    # G: the top stage (m = n/2, twiddle stride 1) of the flat transforms
+    for name, (rows, log_n) in BUTTERFLY_SHAPES.items():
+        s = log_n - 1
+        x = rand_fr((rows, 1 << log_n))
+        tw = _flat_twiddles(log_n, False, dev)
+        got = butterfly(x, tw, s)
+        out = torch.empty_like(x)
+        ms = cuda_ms(lambda: butterfly(x, tw, s, out=out), 10)
+        plain_s, ref = wall_s(lambda: butterfly_plain(x, tw, s))
+        # a butterfly reads lo and hi and writes two rows; the m distinct
+        # twiddles are read once each; butterfly 0's product is by w^0 = 1
+        n_bf = rows << s
+        record(name, "zkdcap_tpu_torch/csrc/butterfly.cu", "zkdcap_tpu/fields/pallas_mont.py:36",
+               (got,), (ref,), ms, plain_s * 1e3, rows * ((1 << s) - 1),
+               LIMB_BYTES * (4 * n_bf + (1 << s)), f"stage {s} of 2^{log_n} x {rows} rows")
+        del x, got, out, ref
+    torch.cuda.empty_cache()
+
     # -- 3. the main path at k = 18 -------------------------------------------
     tau = _dev_tau()
     k = SIZES["k"]
@@ -803,6 +943,49 @@ def main() -> int:
             raise AssertionError(f"ntt at w^{j}")
     say(f"ntt 2^{SIZES['ntt_log']}: intt round trip exact; f(w^j) equals host Horner at two j")
 
+    # the flat path: kernel A's chunk pass and kernel G's stages
+    os.environ[NO_FOUR_STEP] = "1"
+    try:
+        ev_flat = phase(f"ntt 2^{SIZES['ntt_log']} {NO_FOUR_STEP}=1", lambda: ntt(BN254_FR, a22))
+    finally:
+        del os.environ[NO_FOUR_STEP]
+    if not torch.equal(ev_flat, ev):
+        raise AssertionError(f"{NO_FOUR_STEP}=1: the flat 2^22 NTT differs from the four-step one")
+    say(f"{NO_FOUR_STEP}=1: ntt 2^{SIZES['ntt_log']} equals the four-step result")
+    del ev_flat, ev, back
+    for log_n in FLAT_LOGS:
+        n = 1 << log_n
+        a = rand_fr((n,))
+        ev = phase(f"ntt 2^{log_n} (flat)", lambda: ntt(BN254_FR, a))
+        back = phase(f"intt 2^{log_n} (flat)", lambda: intt(BN254_FR, ev))
+        if not torch.equal(back, a):
+            raise AssertionError(f"intt(ntt(a)) != a at 2^{log_n}")
+        del a, ev, back
+        # a sparse poly: f(w^j) = sum_i c_i w^(i j) on the host
+        pos = [0, 1, 2, int(gen.integers(3, n - 1)), n - 1]
+        vals = [int.from_bytes(gen.bytes(32), "little") % r_ord for _ in pos]
+        sp = torch.zeros((n, 16), dtype=torch.int32, device=dev)
+        sp[pos] = mont.encode_ints(BN254_FR, vals, device=dev)
+        sev = ntt(BN254_FR, sp)
+        w = BN254_FR.nth_root_of_unity(log_n)
+        js = [0, 1, n // 2 + 1, int(gen.integers(2, n - 1)), n - 1]
+        want = [sum(v * pow(w, i * j, r_ord) for i, v in zip(pos, vals)) % r_ord for j in js]
+        if mont.decode_ints(BN254_FR, sev[js]) != want:
+            raise AssertionError(f"flat ntt 2^{log_n} of a sparse poly")
+        del sp, sev
+        say(f"ntt 2^{log_n} (flat): intt round trip exact; a 5-term poly's f(w^j) equals the "
+            f"host sum at j = {js}")
+    k_lo, k_hi = FLAT_DOMAIN
+    dom_flat = Domain(BN254_FR, k_lo, k_hi)
+    c_lo = rand_fr((1 << k_lo,))
+    back = phase(f"Domain({k_lo},{k_hi}) coeff->extended->coeff",
+                 lambda: dom_flat.extended_to_coeff(dom_flat.coeff_to_extended(c_lo)), runs=2)
+    if not (torch.equal(back[: 1 << k_lo], c_lo) and not back[1 << k_lo :].any()):
+        raise AssertionError(f"Domain({k_lo}, {k_hi}) round trip")
+    say(f"Domain({k_lo}, {k_hi}): extended_to_coeff(coeff_to_extended(a)) == a, zero-padded")
+    del back, c_lo, dom_flat
+    torch.cuda.empty_cache()
+
     totals = {k: sum(p["launches"][k] for p in phases.values()) for k in _build.launches}
     for name in KERNELS:
         if totals[name] <= 0:
@@ -811,17 +994,25 @@ def main() -> int:
     # -- 4. the prover --------------------------------------------------------
     prover = prove_phase(say, card, dev, srs)
     for name in KERNELS:
-        if name != "bitonic_sort" and prover["launches"][name] <= 0:
+        if name not in ("bitonic_sort", "butterfly") and prover["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the prover's path")
 
     # -- 5. the slice's main path: the P-256 prover service ------------------------
     fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json").read_text())
     service = service_phase(say, card, dev, fixture)
     for name in KERNELS:
-        if service["launches"][name] <= 0:
+        if name != "butterfly" and service["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the prover service's path")
 
-    # -- 6. where the device time goes: one profiled run of four phases --------
+    # -- 6. this slice's main path: the DCAP prover ---------------------------------
+    dcap_fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "dcap_proof.json")
+                              .read_text())
+    dcap = dcap_phase(say, card, dev, dcap_fixture)
+    for name in KERNELS:
+        if name != "bitonic_sort" and dcap["launches"][name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the DCAP prover's path")
+
+    # -- 7. where the device time goes: one profiled run of each phase --------
     breakdown = {}
     def switched(var, fn):
         def run():
@@ -850,7 +1041,7 @@ def main() -> int:
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.2f} ms" for kn, r in b["ours"].items())
         say(f"profile {name}: {b['wall_ms_profiled']:.1f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.1f} ms ({100 * b['busy_share']:.0f}%); "
-            f"kernels A-F: {ours}; top: {top} ({card})")
+            f"kernels A-G: {ours}; top: {top} ({card})")
     # one k = 18 proof, with the plain field additions, subtractions and
     # negations (mont.add/sub/neg) marked as ranges
     name = f"ECDSAProver.create_proof k={k}"
@@ -881,7 +1072,7 @@ def main() -> int:
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
         say(f"profile {name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
-            f"{b['kernel_launches']} kernel launches; ranges: {share}; kernels A-F: {ours}; "
+            f"{b['kernel_launches']} kernel launches; ranges: {share}; kernels A-G: {ours}; "
             f"top: {top} ({card})")
     else:
         say(f"profile {name}: device time not measured (no CUDA events in the trace)")
@@ -896,15 +1087,62 @@ def main() -> int:
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
         say(f"profile {sw_name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
-            f"gathers {b['gather_ms']:.1f} ms; kernels A-F: {ours} ({card})")
+            f"gathers {b['gather_ms']:.1f} ms; kernels A-G: {ours} ({card})")
     base = breakdown[name]
     if base["device_busy_ms"]:
         say(f"profile {name}: gathers {base['gather_ms']:.1f} ms ({card})")
+    # one DCAP proof with the default NTT and one under the flat path
+    dcap_once = dcap.pop("prove_once")
+    for label, fn in (("default", dcap_once), (f"{NO_FOUR_STEP}=1", switched(NO_FOUR_STEP, dcap_once))):
+        name = f"DcapProver.create_proof k=17 {label}"
+        b = breakdown[name] = device_breakdown(fn, top=10)
+        if not b["device_busy_ms"]:
+            say(f"profile {name}: device time not measured (no CUDA events in the trace)")
+            continue
+        top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.1f} ms"
+                        for t in b["top"][:8])
+        ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
+        say(f"profile {name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
+            f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
+            f"{b['kernel_launches']} kernel launches, gathers {b['gather_ms']:.1f} ms; "
+            f"kernels A-G: {ours}; top: {top} ({card})")
+
+    # the device time each kernel loses per proof against its bound: its
+    # profiled device ms times (1 - bound/ms) at its main row's shape in
+    # step 2, the largest over the profiled proofs of each circuit; kernels
+    # slower than the PyTorch call for the same function first
+    ranking = []
+    proof_profiles = {"P-256": [n for n in breakdown if n.startswith("ECDSAProver")],
+                      "DCAP": [n for n in breakdown if n.startswith("DcapProver")]}
+    for kname in KERNELS:
+        row = kernels[kname]
+        slack = max(0.0, 1 - row["bound_ms"] / row["ms"])
+        entry = {"kernel": kname, "ms_over_bound": row["ms"] / row["bound_ms"],
+                 "slower_than_library": row["library_ms"] is not None
+                 and row["ms"] > row["library_ms"]}
+        for circuit, names in proof_profiles.items():
+            per = {n: breakdown[n]["ours"].get(kname, {"ms": 0.0})["ms"] for n in names}
+            worst = max(per, key=per.get) if per else None
+            entry[circuit] = {"device_ms": per.get(worst, 0.0), "lost_ms": per.get(worst, 0.0) * slack,
+                              "proof": worst}
+        ranking.append(entry)
+    ranking.sort(key=lambda e: (not e["slower_than_library"],
+                                -(e["P-256"]["lost_ms"] + e["DCAP"]["lost_ms"])))
+    report["ranking"] = ranking
+    say("ranking by device ms lost per proof against the bound: " + "; ".join(
+        f"{e['kernel']} {e['ms_over_bound']:.1f}x bound"
+        + (", slower than the library call" if e["slower_than_library"] else "")
+        + f", P-256 {e['P-256']['lost_ms']:.1f} of {e['P-256']['device_ms']:.1f} ms, "
+        f"DCAP {e['DCAP']['lost_ms']:.1f} of {e['DCAP']['device_ms']:.1f} ms" for e in ranking)
+        + f" ({card})")
 
     table = []
     for name, row in kernels.items():
         base = name.split("/")[0]
-        row["launches"] = service["launches"][base]
+        # the two main paths: the P-256 service (step 5) and the DCAP prover (step 6)
+        row["launches"] = service["launches"][base] + dcap["launches"][base]
+        row["launches_service"] = service["launches"][base]
+        row["launches_dcap"] = dcap["launches"][base]
         row["launches_engine"] = totals[base]
         row["launches_layout_prover"] = prover["launches"][base]
     for name in KERNELS:
@@ -913,7 +1151,7 @@ def main() -> int:
         table.append(row)
     report.update({"kernel_checks": list(kernels.values()), "phases": phases,
                    "launch_totals": totals, "prover": prover, "service": service,
-                   "breakdown": breakdown})
+                   "dcap": dcap, "breakdown": breakdown})
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     say(json.dumps({"kernels": table}))
     say(card)

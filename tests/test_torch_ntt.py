@@ -6,6 +6,8 @@ four-step two-pass transform above); the JAX package runs its flat radix-2
 path. Tolerance zero.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -128,10 +130,16 @@ def test_domain_matches_reference():
                           np.asarray(jd.coeff_to_lagrange(jnp.asarray(lag))))
 
 
-def test_size_limits():
+def test_size_limits(monkeypatch):
+    """2^23 points and more go to the flat radix-2 path (checked by its
+    dispatch: a 2^23-point transform is not allocated on the CPU); sizes
+    that are not powers of two raise; one point is its own transform."""
+    ntt_module = importlib.import_module("zkdcap_tpu_torch.ntt.ntt")
+    calls = []
+    monkeypatch.setattr(ntt_module, "_flat",
+                        lambda batch, log_n, inverse: calls.append((log_n, inverse)) or batch)
     big = torch.zeros(1, 1, 16, dtype=torch.int32).expand(1, 1 << 23, 16)
-    with pytest.raises(NotImplementedError):
-        _transform(BN254_FR, big, False)
+    assert _transform(BN254_FR, big, False) is big and calls == [(23, False)]
     with pytest.raises(ValueError):
         tntt.ntt(BN254_FR, torch.zeros(6, 16, dtype=torch.int32))
     one = mont.encode_ints(BN254_FR, [42], device="cpu")

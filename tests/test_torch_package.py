@@ -50,6 +50,10 @@ def test_import_pulls_in_no_jax():
         "import zkdcap_tpu_torch.circuits.p256_ecdsa, zkdcap_tpu_torch.metrics\n"
         "import zkdcap_tpu_torch.witness.tape, zkdcap_tpu_torch.witness.native\n"
         "import zkdcap_tpu_torch.witness.replay, zkdcap_tpu_torch.runtime.prover\n"
+        "import zkdcap_tpu_torch.fields.butterfly_kernels, zkdcap_tpu_torch.chips.sha256\n"
+        "import zkdcap_tpu_torch.chips.base64, zkdcap_tpu_torch.chips.builder\n"
+        "import zkdcap_tpu_torch.plonk.mock, zkdcap_tpu_torch.circuits.dcap\n"
+        "import zkdcap_tpu_torch.runtime.circuit_prover, zkdcap_tpu_torch.runtime.dcap_prover\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
         "assert not bad, bad\n"
@@ -75,11 +79,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
     advice = [mont.encode_ints(BN254_FR, col, device="cpu") for col in circ.advice_values]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_proof(params, pk, advice, circ.instances, TranscriptWriter(), blinding_seed=b"s")
-    # the prover service: keygen needs the card unless device="cpu"
-    from zkdcap_tpu_torch.runtime import ECDSAProver
+    # the prover services: keygen needs the card unless device="cpu"
+    from zkdcap_tpu_torch.plonk.mock import MockProver
+    from zkdcap_tpu_torch.runtime import DcapProver, ECDSAProver
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ECDSAProver(params_dir=str(tmp_path / "params"), k=18).keygen()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DcapProver(params_dir=str(tmp_path / "dcap"), k=17).keygen()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MockProver(circ.k, circ.cs, circ.fixed_values, circ.advice_values, circ.instances)
 
 
 def test_interop_round_trip_keeps_bit_patterns():
@@ -217,4 +226,35 @@ def test_kernel_f_matches_plain(cuda, log_n):
             ref = ds.sort_rows_by_key(key, planes, per_window)
         finally:
             ds.ROWS_SORT_SEG = old
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_n", [1, 5, 12])
+def test_kernel_g_matches_plain(cuda, log_n, monkeypatch):
+    """Kernel G against its plain version at every stage of a transform,
+    out of place and in place, forward and inverse tables; then the flat
+    NTT (kernel A's chunk pass and kernel G's stages) on the card against
+    the CPU path under ZKDCAP_NO_FOUR_STEP=1."""
+    from zkdcap_tpu_torch.fields.butterfly_kernels import butterfly, butterfly_plain
+    from zkdcap_tpu_torch.ntt import intt_many, ntt_many
+    from zkdcap_tpu_torch.ntt.ntt import _flat_twiddles
+
+    rows, n = 3, 1 << log_n
+    x = _rand_fr(rows * n, 7 * log_n, cuda).reshape(rows, n, 16)
+    for inverse in (False, True):
+        tw = _flat_twiddles(log_n, inverse, cuda)
+        for s in range(log_n):
+            stride = n >> (s + 1)
+            ref = butterfly_plain(x, tw, s, stride)
+            assert torch.equal(butterfly(x, tw, s, stride), ref)
+            y = x.clone()
+            assert butterfly(y, tw, s, stride, out=y) is y and torch.equal(y, ref)
+    if log_n < 12:
+        return
+    monkeypatch.setenv("ZKDCAP_NO_FOUR_STEP", "1")
+    polys = list(x.unbind(0))
+    for fn in (ntt_many, intt_many):
+        got = fn(BN254_FR, polys)
+        ref = fn(BN254_FR, [p.cpu() for p in polys])
         assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))

@@ -49,6 +49,9 @@ FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "reference_proofs.json"
 P256_FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json"
 # the P-256 fixture's circuit size and blinding seed
 P256_K, P256_LOOKUP_BITS, P256_SEED = 18, 17, b"p256-reference-vector"
+DCAP_FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "dcap_proof.json"
+# the DCAP fixture's circuit size and blinding seed
+DCAP_K, DCAP_SEED = 17, b"dcap-demo-input"
 
 
 def reference_fixture(srs_dir: str) -> dict:
@@ -170,6 +173,43 @@ def p256_fixture(params_dir: str, k: int = P256_K, lookup_bits: int = P256_LOOKU
             "proof": proof.hex(), "seconds": round(time.perf_counter() - t0, 1)}
 
 
+def dcap_fixture(params_dir: str, k: int = DCAP_K, seed: bytes = DCAP_SEED) -> dict:
+    """The JAX package's proof of the DCAP circuit on its demo input, through
+    the steps of ``CircuitProver.create_proof`` (keygen, tape replay, witness
+    fill, encode, ``create_proof``) with ``blinding_seed`` passed to the
+    prover, the commitments taken from the dev tau and the quotient evaluated
+    op by op, as ``p256_fixture`` does. The circuit has no public instances;
+    the fixture also holds the vk's commitments (``vk``, as the prover's
+    ``dcap_vk_k17.json`` holds them), which no committed asset has for this
+    circuit."""
+    from zkdcap_tpu.runtime.dcap_prover import DcapProver
+    from zkdcap_tpu.witness.native import eval_tape_raw
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    prover = DcapProver(params_dir=params_dir, k=k)
+    prover._params = prover.verifier_params()  # no G1 powers: the commitments use the tau
+    inp = prover.structure_input()
+    t0 = time.perf_counter()
+    with _dev_tau_commitments(), _eager_quotient():
+        builder, compiled = prover._compile()
+        pk = j_keygen(prover._params, compiled.cs, compiled.fixed_values, prover.transcript_kind)
+        prover._pk, prover._builder, prover._compiled = pk, builder, compiled
+        raw = eval_tape_raw(prover._get_tape(), prover.trace_inputs(inp))
+        assert raw is not None, "the JAX package's native witness evaluator is not built"
+        limbs = builder.witness_limbs(compiled, prover._structure_ctx, raw)
+        adv = jmont.to_mont(J_FR, jnp.asarray(limbs.astype(np.uint32)))
+        proof = j_create_proof(prover._params, pk, [adv[i] for i in range(adv.shape[0])],
+                               [], JTranscriptWriter(prover.transcript_kind),
+                               blinding_seed=seed)
+    assert j_verify_proof(prover._params, pk.vk, [], proof)
+    return {"k": k, "lookup_bits": prover.lookup_bits, "seed": seed.decode(),
+            "transcript": prover.transcript_kind, "instances": [],
+            "vk": prover._vk_data(pk.vk),
+            "proof": proof.hex(), "seconds": round(time.perf_counter() - t0, 1)}
+
+
 def test_fixture_is_current(tmp_path):
     assert json.loads(FIXTURE.read_text()) == reference_fixture(str(tmp_path))
 
@@ -178,6 +218,14 @@ def test_fixture_is_current(tmp_path):
 def test_p256_fixture_is_current(tmp_path):
     want = json.loads(P256_FIXTURE.read_text())
     got = p256_fixture(str(tmp_path), want["k"], want["lookup_bits"], want["seed"].encode())
+    assert {k: v for k, v in got.items() if k != "seconds"} == \
+        {k: v for k, v in want.items() if k != "seconds"}
+
+
+@pytest.mark.slow
+def test_dcap_fixture_is_current(tmp_path):
+    want = json.loads(DCAP_FIXTURE.read_text())
+    got = dcap_fixture(str(tmp_path), want["k"], want["seed"].encode())
     assert {k: v for k, v in got.items() if k != "seconds"} == \
         {k: v for k, v in want.items() if k != "seconds"}
 
@@ -193,6 +241,10 @@ if __name__ == "__main__":
             fixture = p256_fixture(tmp, k, min(P256_LOOKUP_BITS, k - 1))
             P256_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
             print(f"wrote {P256_FIXTURE} in {fixture['seconds']} s")
+        elif sys.argv[1:2] == ["dcap"]:
+            fixture = dcap_fixture(tmp)
+            DCAP_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
+            print(f"wrote {DCAP_FIXTURE} in {fixture['seconds']} s")
         else:
             FIXTURE.write_text(json.dumps(reference_fixture(tmp), indent=1) + "\n")
             print(f"wrote {FIXTURE}")

@@ -100,12 +100,12 @@ def test_pk_file_is_the_reference_format(tmp_path):
 
     import numpy as np
 
-    from zkdcap_tpu_torch.runtime.prover import _savez_deflated
+    from zkdcap_tpu_torch.interop import savez_deflated
 
     rng = np.random.default_rng(3)
     arrays = {"fixed_lagrange": rng.integers(0, 1 << 16, (2, 64, 16), dtype=np.uint32),
               "l0_ext": rng.integers(0, 1 << 16, (256, 16), dtype=np.uint32)}
-    _savez_deflated(str(tmp_path / "port.npz"), arrays)
+    savez_deflated(str(tmp_path / "port.npz"), arrays)
     np.savez_compressed(tmp_path / "numpy.npz", **arrays)
     with np.load(tmp_path / "port.npz") as data:
         assert sorted(data.files) == sorted(arrays)

@@ -11,16 +11,20 @@ P-256 ECDSA prover service on the real k = 18 circuit: ``runtime.ECDSAProver``
 (keygen with an artifact cache in the JAX package's file formats, proofs,
 host verify) over copies of the host circuit stack (``chips``, ``circuits``,
 ``witness`` with its C++ evaluator in ``csrc_host/``, ``metrics``), and the
-MSM's opt-in bitonic sorts (``utils.device_sort``). The JAX package
+MSM's opt-in bitonic sorts (``utils.device_sort``). Slice 4 is the DCAP
+k = 17 prover, ``runtime.DcapProver`` over the generic ``CircuitProver``,
+with the SHA-256 and base64 chips, ``circuits.dcap`` and ``plonk.mock``, and
+the flat radix-2 NTT (above 2^22, or under ``ZKDCAP_NO_FOUR_STEP``). The JAX package
 ``zkdcap_tpu`` is the reference it is held against; this package imports
 neither it nor JAX.
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``; with no card and no explicit device they raise. On CUDA
-tensors the six hand-written kernels in ``csrc/`` run (built at first use
+tensors the seven hand-written kernels in ``csrc/`` run (built at first use
 by ``_build``): the NTT pass (A), the MSM's mixed-add scan (B), complete
 addition with select (C), the window join (D), the elementwise Montgomery
 product (E), which every field product goes through, and the bitonic sort
-(F) behind ``ZKDCAP_MSM_BITONIC=1`` and ``ZKDCAP_MSM_ROWSORT=1``. On CPU
+(F) behind ``ZKDCAP_MSM_BITONIC=1`` and ``ZKDCAP_MSM_ROWSORT=1``, and the
+flat NTT's radix-2 butterfly stage (G). On CPU
 tensors their plain torch versions run.
 """

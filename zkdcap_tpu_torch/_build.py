@@ -57,10 +57,12 @@ SIGNATURES = {
     # in_ptrs, out_ptrs, in_ws, in_ss, out_ws, out_ss (host arrays), n_ops,
     # batches, segments, log_n, stream
     "zk_bitonic_sort": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # x, out, tw, rows, log_n, s, tw_stride, stream
+    "zk_butterfly": [_P, _P, _P, _L, _I, _I, _L, _P],
 }
 
 launches = {"ntt_pass": 0, "madd_scan": 0, "ec_add_select": 0, "window_join": 0,
-            "mont_mul": 0, "bitonic_sort": 0}
+            "mont_mul": 0, "bitonic_sort": 0, "butterfly": 0}
 
 _lib = None
 _witness_lib = None

@@ -1,8 +1,7 @@
 """Trace -> circuit compiler (halo2-base BaseCircuitBuilder equivalent).
 
 A copy of ``zkdcap_tpu/chips/builder.py``, building the port's
-``plonk.cs.ConstraintSystem``. The SHA-256 spread table needs
-``chips/sha256.py``, which a later slice brings (ROADMAP.md queue 1).
+``plonk.cs.ConstraintSystem``.
 
 Lays a recorded `Context` tape out into PLONK columns:
 
@@ -226,9 +225,12 @@ class CircuitBuilder:
             assert tb + cs.blinding_factors + 1 <= n, "lookup table larger than domain"
             fixed_values.append(list(range(tb)) + [0] * (n - tb))
         if num_spread_advice:
-            raise NotImplementedError(
-                "SHA-256 spread lookups need chips/sha256.py, a later slice of the port "
-                "(ROADMAP.md queue 1)")
+            from .sha256 import SPREAD_BITS, spread_int
+
+            sn = 1 << SPREAD_BITS
+            assert sn + cs.blinding_factors + 1 <= n, "spread table larger than domain"
+            fixed_values.append(list(range(sn)) + [0] * (n - sn))
+            fixed_values.append([spread_int(x) for x in range(sn)] + [0] * (n - sn))
         for name in pair_names:
             if pair_meta[name][0] == 0:
                 continue

@@ -59,3 +59,37 @@ def proving_key_from_numpy(cs, k: int, arrays: dict, fixed_commitments, permutat
     fields = {name: [to_torch(a, device) for a in arrays[name]] for name in PK_LISTS}
     fields.update((name, to_torch(arrays[name], device)) for name in PK_ARRAYS)
     return ProvingKey(vk=vk, domain=Domain(BN254_FR, k, cs.extended_k(k)), **fields)
+
+
+def savez_deflated(path: str, arrays: dict, level: int = 1) -> None:
+    """``np.savez_compressed``'s file (a zip of deflated ``.npy`` members,
+    read by ``np.load`` in either package) at deflate level 1: the pk's
+    limbs are near-random, so numpy's default level 6 spends several times
+    longer for about 2% fewer bytes."""
+    import zipfile
+
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED,
+                         compresslevel=level) as zf:
+        for name, arr in arrays.items():
+            with zf.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
+
+
+def save_pk(path: str, pk) -> None:
+    """A prover's pk file in the JAX package's layout: each non-empty list of
+    PK_LISTS stacked, then each array of PK_ARRAYS (``savez_deflated``)."""
+    arrays = {name: to_numpy(torch.stack(getattr(pk, name)))
+              for name in PK_LISTS if getattr(pk, name)}
+    arrays.update((name, to_numpy(getattr(pk, name))) for name in PK_ARRAYS)
+    savez_deflated(path, arrays)
+
+
+def load_pk(path: str, vk, domain, device=None):
+    """The ProvingKey of a pk file written by either package's prover."""
+    from .plonk.keygen import ProvingKey
+
+    with np.load(path) as data:
+        fields = {name: [to_torch(a, device) for a in data[name]] if name in data else []
+                  for name in PK_LISTS}
+        fields.update((name, to_torch(data[name], device)) for name in PK_ARRAYS)
+    return ProvingKey(vk=vk, domain=domain, **fields)

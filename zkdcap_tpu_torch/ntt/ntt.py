@@ -1,4 +1,4 @@
-"""Radix-2 NTT over BN254 Fr: one or two passes of kernel A.
+"""Radix-2 NTT over BN254 Fr: kernel A's passes and kernel G's stages.
 
 Port of ``zkdcap_tpu/ntt/ntt.py``. A transform of n <= 2^11 points is one
 pass of kernel A (``fields/ntt_kernels.py``); 2^12 <= n <= 2^22 is the
@@ -6,7 +6,12 @@ four-step transform n = N1 * N2 with N1 = 2^floor(log n / 2): pass A runs
 the N2 size-N1 transforms of the columns and multiplies by the inter-pass
 twiddles w^(j*k1) (times n^-1 for the inverse), pass B runs the N1 size-N2
 transforms of the rows, and three transposes in torch move the data between
-them. Larger n raises until the radix-2 butterfly kernel is ported.
+them. Larger n, and every n >= 2^12 while ``ZKDCAP_NO_FOUR_STEP`` is set to
+a non-empty value (read at each call, as the JAX package reads it), take the
+flat radix-2 path: one gather puts every 2^11-point chunk of the
+bit-reversed array in natural order, one launch of kernel A runs stages
+0-10 on all chunks, and one launch of kernel G (``fields/butterfly_kernels.py``)
+runs each further stage; the inverse then multiplies by n^-1 (kernel E).
 
 Inputs and outputs are ``int32[n, 16]`` Montgomery limbs in natural order.
 Tables are built in torch on the input's device and cached per device.
@@ -15,16 +20,19 @@ Tables are built in torch on the input's device and cached per device.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
 from ..device import resolve
 from ..fields import mont
-from ..fields.ntt_kernels import MAX_PASS_LOG, ntt_pass
+from ..fields.butterfly_kernels import butterfly
+from ..fields.ntt_kernels import MAX_PASS_LOG, _bitrev, ntt_pass
 from ..fields.params import BN254_FR, NUM_LIMBS, R, FieldParams, int_to_limbs
 
 L = NUM_LIMBS
-MAX_LOG = 2 * MAX_PASS_LOG
+# the largest transform of the four-step path; above it the flat path runs
+MAX_FOUR_STEP_LOG = 2 * MAX_PASS_LOG
 
 
 def _mont_limbs(params: FieldParams, value: int, device) -> torch.Tensor:
@@ -67,6 +75,37 @@ def _n_inv(log_n: int, device: torch.device) -> torch.Tensor:
     return _mont_limbs(BN254_FR, pow(1 << log_n, -1, BN254_FR.p), device)[None]
 
 
+@functools.cache
+def _flat_twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """Kernel G's table for a 2^log_n transform: w^0 .. w^(n/2 - 1) of the
+    n-th root; stage s reads w_{2^(s+1)}^i at row i * n / 2^(s+1). One table
+    per size and direction serves every stage (512 MiB at 2^24)."""
+    return _power_table(BN254_FR, _root(BN254_FR, log_n, inverse), log_n - 1, device)
+
+
+def _flat(batch: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
+    """The flat radix-2 transform of every row of (B, n, 16), n >= 2^12:
+    one gather, one pass of kernel A over the 2^11-point chunks, one launch
+    of kernel G per stage from 11 up, and n^-1 for the inverse."""
+    nb, n, _ = batch.shape
+    dev = batch.device
+    log_c = log_n - MAX_PASS_LOG
+    # after a global bit reversal, chunk c holds the bit reversal of
+    # x_c[u] = a[u * 2^log_c + bitrev(c)]; kernel A reverses by its load
+    # address, so it is given x_c in natural order
+    u = torch.arange(1 << MAX_PASS_LOG, device=dev)
+    idx = ((u << log_c)[None, :] + _bitrev(log_c).to(dev)[:, None]).reshape(-1)
+    x = batch.index_select(1, idx).view(nb << log_c, 1 << MAX_PASS_LOG, L)
+    a = ntt_pass(x, _pass_twiddles(MAX_PASS_LOG, inverse, dev)).view(nb, n, L)
+    del x
+    tw = _flat_twiddles(log_n, inverse, dev)
+    for s in range(MAX_PASS_LOG, log_n):
+        butterfly(a, tw, s, n >> (s + 1), out=a)
+    if inverse:
+        a = mont.mont_mul(BN254_FR, a, _n_inv(log_n, dev))
+    return a
+
+
 def _four_step_split(log_n: int) -> tuple[int, int]:
     log_n1 = log_n // 2
     return log_n1, log_n - log_n1
@@ -97,9 +136,9 @@ def _transform(params: FieldParams, batch: torch.Tensor, inverse: bool) -> torch
         raise ValueError(f"NTT size {n} is not a power of two")
     if n == 1:
         return batch
-    if log_n > MAX_LOG:
-        raise NotImplementedError(
-            f"NTT of 2^{log_n} points needs the radix-2 butterfly kernel, not yet ported")
+    if log_n > MAX_FOUR_STEP_LOG or (log_n > MAX_PASS_LOG
+                                     and os.environ.get("ZKDCAP_NO_FOUR_STEP")):
+        return _flat(batch, log_n, inverse)
     dev = batch.device
     batch = batch.contiguous()
     if log_n <= MAX_PASS_LOG:

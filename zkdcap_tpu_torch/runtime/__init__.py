@@ -1,1 +1,3 @@
 from .prover import ECDSAProver, SAMPLE_INPUT
+from .circuit_prover import CircuitProver
+from .dcap_prover import DcapProver

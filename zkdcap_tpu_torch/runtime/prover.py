@@ -34,7 +34,7 @@ from ..commit import ParamsKZG, gen_srs
 from ..curves.host_curve import SECP256R1
 from ..device import resolve
 from ..fields import BN254_FR, mont
-from ..interop import PK_ARRAYS, PK_LISTS, to_numpy, to_torch
+from ..interop import load_pk, save_pk
 from ..ntt import Domain
 from ..plonk.keygen import ProvingKey, VerifyingKey, keygen
 from ..plonk.prover import create_proof
@@ -55,20 +55,6 @@ def _sample_input() -> ECDSAInput:
 
 
 SAMPLE_INPUT = _sample_input()
-
-
-def _savez_deflated(path: str, arrays: dict, level: int = 1) -> None:
-    """``np.savez_compressed``'s file (a zip of deflated ``.npy`` members,
-    read by ``np.load`` in either package) at deflate level 1: the pk's
-    limbs are near-random, so numpy's default level 6 spends several times
-    longer for about 2% fewer bytes."""
-    import zipfile
-
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED,
-                         compresslevel=level) as zf:
-        for name, arr in arrays.items():
-            with zf.open(name + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
 
 
 def _not_ported(what: str, where: str):
@@ -181,14 +167,7 @@ class ECDSAProver:
     def _save(self, pk: ProvingKey, pinning: Pinning) -> None:
         with open(self.pinning_path, "w") as f:
             f.write(pinning.to_json())
-        arrays = {}
-        for name in PK_LISTS:
-            lst = getattr(pk, name)
-            if lst:
-                arrays[name] = to_numpy(torch.stack(lst))
-        for name in PK_ARRAYS:
-            arrays[name] = to_numpy(getattr(pk, name))
-        _savez_deflated(self.pk_path, arrays)
+        save_pk(self.pk_path, pk)
         vk_data = {
             "k": pk.vk.k,
             "transcript": pk.vk.transcript_kind,
@@ -217,13 +196,8 @@ class ECDSAProver:
             pinning = Pinning.from_json(f.read())
         builder, compiled, _ = self._compile(pinning)
         vk = self._vk_from_files(compiled)
-        dev = self.device
         domain = Domain(BN254_FR, self.k, compiled.cs.extended_k(self.k))
-        with np.load(self.pk_path) as data:
-            fields = {name: [to_torch(a, dev) for a in data[name]] if name in data else []
-                      for name in PK_LISTS}
-            fields.update((name, to_torch(data[name], dev)) for name in PK_ARRAYS)
-        pk = ProvingKey(vk=vk, domain=domain, **fields)
+        pk = load_pk(self.pk_path, vk, domain, self.device)
         self._pk, self._builder, self._compiled = pk, builder, compiled
         return pk
 
