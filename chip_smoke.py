@@ -12,7 +12,9 @@ fails, printing no result, without them or outside a checkout of the repo.
    the main paths' shapes and requires an exact match, timing both (and,
    for kernel F, the PyTorch sort + gather that computes the same function);
    kernel G at the top stages of the DCAP proof's flat 2^17 (22 advice
-   columns) and 2^19 transforms and of a 2^24 transform;
+   columns) and 2^19 transforms and of a 2^24 transform; kernel D at the
+   proofs' W = 20, c = 13 and the 2^20 MSM's W = 16, c = 16, with its time
+   per chain step;
 3. drives the commitment engine at k = 18 through its entry points, each
    phase against an independent host oracle: gen_srs(18), commit_lagrange
    and commit_many of 2^18-point polys, the Domain(18, 20) coset round trip,
@@ -99,7 +101,11 @@ ALSO_REPLACES = {
 # 2^20 and 2^18 transforms use passes of 2^10 and 2^9).
 SIZES = {"k": 18, "ext_k": 20, "msm_log": 20, "lanes": 16384, "ntt_log": 22,
          "pass_logs": (9, 10, 11), "scan": (64, 8 * 16384), "hs_lanes": 8 * (16384 + 32768),
-         "join": (16, 16), "pool": 4096, "mul_log": 20, "proofs": 3}
+         "pool": 4096, "mul_log": 20, "proofs": 3}
+# Kernel D's shapes (windows, window bits): every commitment of both proofs
+# (below 2^20 points, _auto_c picks c = 13: 20 windows), the main row; and
+# bench.py's 2^20 MSM (c = 16)
+JOIN_SHAPES = {"window_join": (20, 13), "window_join/2^20": (16, 16)}
 KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul", "bitonic_sort",
            "butterfly")
 # Kernel G's shapes: (rows, log n) of the top stage of the DCAP proof's flat
@@ -118,8 +124,10 @@ PROOF_SEED = b"chip-smoke-k18"
 # holds the key and the 8 u16-packed point planes.
 SORT_SHAPES = {"commit": (5, 18, 12), "msm": (8, 20, 15)}
 SWITCHES = {"rowsort": "ZKDCAP_MSM_ROWSORT", "bitonic": "ZKDCAP_MSM_BITONIC"}
-# CUDA functions of a kernel where they are not named <kernel>_kernel
-KERNEL_FUNCS = {"bitonic_sort": ("bitonic_tile_kernel", "bitonic_pass_kernel")}
+# CUDA functions of a kernel where they are not named <kernel>_kernel (none
+# of kernel F's holds "gather", which gather_ms counts)
+KERNEL_FUNCS = {"bitonic_sort": ("bitonic_tile_kernel", "bitonic_group_kernel",
+                                 "bitonic_rows_kernel", "bitonic_permute_kernel")}
 
 
 def fail(msg: str) -> int:
@@ -751,17 +759,22 @@ def main() -> int:
            f"n={n} lanes, {added} adding, fallback p and q")
     del got, ref, got_q, ref_q, P, Q
 
-    # D: the 2^20 join, 16 windows of 16 bits
-    W, c = SIZES["join"]
-    T = affine_to_projective(G1_SPEC, pool[:W])
-    got = ek.ec_window_join(G1_SPEC, T, c)
-    ms = cuda_ms(lambda: ek.ec_window_join(G1_SPEC, T, c), 3)
-    plain_s, ref = wall_s(lambda: ek.ec_window_join_plain(G1_SPEC, T, c))
-    record("window_join", "zkdcap_tpu_torch/csrc/window_join.cu",
-           "zkdcap_tpu/curves/ec_kernels.py:275",
-           got, ref, ms, plain_s * 1e3, (W - 1) * (c * DBL_MULS + ADD_MULS), (W + 1) * POINT_BYTES,
-           f"W={W} windows, c={c}")
-    del got, ref, T
+    # D: the proofs' join (20 windows of 13 bits) and the 2^20 MSM's (16 of
+    # 16); a dependent chain, so its time per step is printed too
+    for name, (W, c) in JOIN_SHAPES.items():
+        T = affine_to_projective(G1_SPEC, pool[:W])
+        got = ek.ec_window_join(G1_SPEC, T, c)
+        ms = cuda_ms(lambda: ek.ec_window_join(G1_SPEC, T, c), 10)
+        plain_s, ref = wall_s(lambda: ek.ec_window_join_plain(G1_SPEC, T, c))
+        steps = c * (W - 1) + W - 1
+        record(name, "zkdcap_tpu_torch/csrc/window_join.cu", "zkdcap_tpu/curves/ec_kernels.py:275",
+               got, ref, ms, plain_s * 1e3, (W - 1) * (c * DBL_MULS + ADD_MULS),
+               (W + 1) * POINT_BYTES, f"W={W} windows, c={c}")
+        kernels[name]["us_per_step"] = 1e3 * ms / steps
+        say(f"check {name}: {1e3 * ms / steps:.3f} us per chain step ({steps} dependent steps: "
+            f"{c * (W - 1)} doublings, {W - 1} additions) beside the operation bound "
+            f"{kernels[name]['bound_ms']:.5f} ms, which a dependent chain does not reach ({card})")
+        del got, ref, T
 
     # E: 2^20 elementwise products (one extended-coset column of the k = 18
     # quotient), Fr and Fq, b in full and b as one broadcast row

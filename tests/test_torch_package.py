@@ -18,7 +18,7 @@ from zkdcap_tpu_torch.commit import gen_srs
 from zkdcap_tpu_torch.curves import BN254_G1
 from zkdcap_tpu_torch.curves import ec_kernels as ek
 from zkdcap_tpu_torch.curves.device_g1 import (
-    G1_SPEC, affine_to_projective, decode_points, encode_points)
+    G1_SPEC, affine_to_projective, decode_points, ec_inf, encode_points)
 from zkdcap_tpu_torch.fields import BN254_FR, mont
 from zkdcap_tpu_torch.commit import ParamsKZG
 from zkdcap_tpu_torch.fields import BN254_FQ, mul_kernels
@@ -149,10 +149,18 @@ def test_kernels_b_c_d_match_plain(cuda):
     got = ek.ec_madd_scan_full(G1_SPEC, rows, masks)
     ref = ek.ec_madd_scan_plain(G1_SPEC, rows, masks)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    T = tuple(c[:5].contiguous() for c in P)
-    got = ek.ec_window_join(G1_SPEC, T, 7)
-    ref = ek.ec_window_join_plain(G1_SPEC, T, 7)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # kernel D: the proofs' shape (W = 20, c = 13), the 2^20 MSM's (16, 16),
+    # one window, and windows at infinity (the top one, inner ones, all)
+    inf = ec_inf(G1_SPEC, (), cuda)
+    for W, c, at_inf in ((5, 7, ()), (20, 13, ()), (16, 16, ()), (1, 13, ()), (1, 13, (0,)),
+                         (20, 13, (19, 4, 5)), (6, 9, tuple(range(6)))):
+        T = tuple(c_[:W].clone() for c_ in P)
+        for w in at_inf:
+            for t, i in zip(T, inf):
+                t[w] = i
+        got = ek.ec_window_join(G1_SPEC, T, c)
+        ref = ek.ec_window_join_plain(G1_SPEC, T, c)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), (W, c, at_inf)
 
 
 @pytest.mark.cuda
@@ -196,37 +204,40 @@ def test_engine_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("log_n", [1, 10, 12, 14])
-def test_kernel_f_matches_plain(cuda, log_n):
-    """Kernel F against its plain version: 1 and 2 operands (one tile, and
-    global passes above the tile), keys at and above 2^31, ties; the row
-    sort with 8 planes, shared and per window, over two segments."""
+@pytest.mark.parametrize("log_n, batch", [(1, 3), (10, 3), (12, 3), (14, 3), (16, 3), (18, 3),
+                                          (20, 1), (21, 3)])
+def test_kernel_f_matches_plain(cuda, log_n, batch):
+    """Kernel F against its plain version: 1 and 2 operands, keys at and
+    above 2^31, ties; the row sort with 8 planes, shared and per window, over
+    two segments. The sizes run every launch of its schedule: the tile alone
+    (up to 2^14), one strided group per stage above the tile (2^16, 2^18,
+    2^21), and two groups per stage (2^20 in one batch: a 2^11 tile)."""
     from zkdcap_tpu_torch.utils import device_sort as ds
 
     gen = torch.Generator().manual_seed(log_n)
     n = 1 << log_n
-    key = torch.randint(-(1 << 31), 1 << 31, (3, n), generator=gen, dtype=torch.int64)
-    key[1] = key[1] % 5  # ties
-    key = key.to(torch.int32)
-    pay = torch.arange(3 * n, dtype=torch.int32).reshape(3, n)
+    key = torch.randint(-(1 << 31), 1 << 31, (batch, n), generator=gen, dtype=torch.int64)
+    key[-1] = key[-1] % 5  # ties
+    key = key.to(torch.int32).to(cuda)
+    pay = torch.arange(batch * n, dtype=torch.int32, device=cuda).reshape(batch, n)
     for ops in ((key,), (key, pay)):
-        got = ds.bitonic_sort(tuple(o.to(cuda) for o in ops))
-        ref = ds.bitonic_sort(ops)
-        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        got = ds.bitonic_sort(ops)
+        ref = ds.bitonic_sort_plain(ops)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
     if log_n < 10:
         return
     seg = max(n // 2, 1 << 10)
     for per_window in (False, True):
-        planes = torch.randint(-(1 << 31), 1 << 31, (3, 8, n) if per_window else (8, n),
-                               generator=gen, dtype=torch.int64).to(torch.int32)
+        planes = torch.randint(-(1 << 31), 1 << 31, (batch, 8, n) if per_window else (8, n),
+                               generator=gen, dtype=torch.int64).to(torch.int32).to(cuda)
         old = ds.ROWS_SORT_SEG
         ds.ROWS_SORT_SEG = seg
         try:
-            got = ds.sort_rows_by_key(key.to(cuda), planes.to(cuda), per_window)
-            ref = ds.sort_rows_by_key(key, planes, per_window)
+            got = ds.sort_rows_by_key(key, planes, per_window)
+            ref = ds.sort_rows_by_key_plain(key, planes, per_window)
         finally:
             ds.ROWS_SORT_SEG = old
-        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.cuda

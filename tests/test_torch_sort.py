@@ -102,3 +102,31 @@ def test_sort_bounds_agree():
         for n_ops in (1, 2, 9, 17):
             assert tds.sort_supported(n, n_ops) == jds.sort_supported(n, n_ops), (n, n_ops)
         assert tds.rows_sort_segments(n) == jds.rows_sort_segments(n)
+
+
+def _by_position(key: torch.Tensor, planes: torch.Tensor, per_window: bool):
+    """Kernel F's row sort as it runs on the card: the network on the key and
+    the position only, then one gather of the 8 planes by the final position."""
+    w, n = key.shape
+    skey, order = tds.bitonic_network_plain(
+        [key, torch.arange(n, dtype=torch.int32).expand(w, n).contiguous()])
+    src = planes if per_window else planes[None].expand(w, *planes.shape)
+    return skey, torch.gather(src, 2, order.to(torch.int64)[:, None].expand(src.shape))
+
+
+@pytest.mark.parametrize("per_window", [False, True], ids=["shared", "per_window"])
+@pytest.mark.parametrize("log_n", [10, 11])
+@pytest.mark.parametrize("keys", sorted(KEYS))
+def test_key_and_position_network_moves_planes_as_the_full_network(keys, log_n, per_window):
+    """The swaps read only the keys, so the network on (key, position) and one
+    gather of the other operands give what the network on all 9 operands
+    gives, the order of tied rows included."""
+    n, w, p = 1 << log_n, 3, 8
+    key = _t(KEYS[keys]((w, n)))
+    planes = _t(_u32((w, p, n) if per_window else (p, n), 1 << 32))
+    src = planes if per_window else planes[None].expand(w, p, n)
+    want = tds.bitonic_network_plain([key] + [src[:, i] for i in range(p)])
+    gk, gp = _by_position(key, planes, per_window)
+    assert torch.equal(gk, want[0])
+    assert torch.equal(gp, torch.stack(want[1:], 1))
+    assert torch.equal(gp, tds.sort_rows_by_key(key, planes, per_window)[1])

@@ -55,8 +55,8 @@ SIGNATURES = {
     # tx, ty, tz, ox, oy, oz, windows, window_bits, stream
     "zk_window_join": [_P] * 6 + [_I, _I, _P],
     # in_ptrs, out_ptrs, in_ws, in_ss, out_ws, out_ss (host arrays), n_ops,
-    # batches, segments, log_n, stream
-    "zk_bitonic_sort": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # batches, segments, log_n, scratch (the row sort's positions), stream
+    "zk_bitonic_sort": [_P] * 6 + [_I, _I, _I, _I, _P, _P],
     # x, out, tw, rows, log_n, s, tw_stride, stream
     "zk_butterfly": [_P, _P, _P, _L, _I, _I, _L, _P],
 }

@@ -14,7 +14,11 @@ int32 and compares them as unsigned, in the kernel and in the plain version.
 
 On CUDA tensors the wrappers launch ``csrc/bitonic_sort.cu`` (one launch
 counted per sort); on CPU tensors they run the plain torch version of the
-same network, which nothing on the card path calls.
+same network, which nothing on the card path calls. The kernel puts only the
+key and one 32-bit companion through the network; for ``sort_rows_by_key``
+the companion is the position within the segment, and the planes are then
+written once from it: the swaps read only the keys, so that equals the
+network on every operand, ties included.
 """
 
 from __future__ import annotations
@@ -86,11 +90,18 @@ def _sort_cuda(ins: list[tuple[torch.Tensor, int, int, int]],
                outs: list[tuple[torch.Tensor, int, int, int]], W: int, S: int, n: int) -> None:
     """Launch kernel F. Each operand is (tensor, element offset, batch
     stride, segment stride): block (w, s) of operand o starts at element
-    offset + w * batch stride + s * segment stride of its tensor."""
+    offset + w * batch stride + s * segment stride of its tensor. The row
+    sort (9 operands) gets a scratch buffer for the positions and the planes'
+    rows."""
     if len(ins) not in KERNEL_OPS:
         raise ValueError(f"kernel F is built for {KERNEL_OPS} operands, got {len(ins)}")
     _build.check_cuda("bitonic_sort", *{id(t): t for t, *_ in ins + outs}.values())
     n_ops = len(ins)
+    scratch = None
+    if n_ops == max(KERNEL_OPS):  # the positions, then the planes as 32-byte rows
+        rows = 8 * (1 if ins[1][2] == 0 else W) * S * n
+        scratch = torch.empty(-(-W * S * n // 4) * 4 + rows, dtype=torch.int32,
+                              device=ins[0][0].device)
 
     def ptrs(ops):
         return (ctypes.c_void_p * n_ops)(*(t.data_ptr() + 4 * off for t, off, _, _ in ops))
@@ -102,7 +113,8 @@ def _sort_cuda(ins: list[tuple[torch.Tensor, int, int, int]],
     in_ws, in_ss, out_ws, out_ss = strides(ins, 2), strides(ins, 3), strides(outs, 2), strides(outs, 3)
     _build.launch("bitonic_sort", ctypes.addressof(in_p), ctypes.addressof(out_p),
                   ctypes.addressof(in_ws), ctypes.addressof(in_ss), ctypes.addressof(out_ws),
-                  ctypes.addressof(out_ss), n_ops, W, S, _log2(n))
+                  ctypes.addressof(out_ss), n_ops, W, S, _log2(n),
+                  None if scratch is None else scratch.data_ptr())
 
 
 # --- entry points ----------------------------------------------------------
