@@ -7,10 +7,18 @@ Needs one CUDA card (an H100 for the numbers the repo keeps) and nvcc; it
 fails, printing no result, without them or outside a checkout of the repo.
 
 1. builds the seven CUDA kernels from ``zkdcap_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) and the host witness evaluator (g++);
+   per source, in parallel) and the host witness evaluator (g++); prints
+   each kernel function's registers, stack and spills (``-Xptxas -v``) and
+   the SASS instruction count of one Fq product, addition and subtraction
+   (probe kernels read with ``cuobjdump -sass``, where the toolkit has it);
 2. runs each kernel and its plain torch version on the same seeded inputs at
    the main paths' shapes and requires an exact match, timing both (and,
    for kernel F, the PyTorch sort + gather that computes the same function);
+   kernel B also at the proofs' scans (8 and 16 steps over 5 x 16384
+   lanes) and kernel C at the proofs' Hillis-Steele level (102,400 lanes)
+   and suffix scans (1,280 lanes); each kernel's ``ms`` is the CUDA-event
+   time around back-to-back calls of its wrapper, its ``kernel_ms`` the
+   device time of its own CUDA functions per call (torch.profiler);
    kernel G at the top stages of the DCAP proof's flat 2^17 (22 advice
    columns) and 2^19 transforms and of a 2^24 transform; kernel D at the
    proofs' W = 20, c = 13 and the 2^20 MSM's W = 16, c = 16, with its time
@@ -52,7 +60,9 @@ fails, printing no result, without them or outside a checkout of the repo.
    flipped byte fails); kernels A-E and G must launch;
 7. profiles the engine's phases (the 2^20 MSM also under each sort switch),
    one k = 18 P-256 proof under each of the three sorts and one DCAP proof
-   under each NTT setting with torch.profiler;
+   under each NTT setting with torch.profiler, kernel C's launches in the
+   default DCAP proof counted and timed by lane count; then ranks the
+   kernels by the device time each loses per proof against its bound;
 8. prints the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -95,13 +105,11 @@ ALSO_REPLACES = {
 }
 
 # The main path's shapes: a k = 18 SRS and commitments, the Domain(18, 20)
-# extension, bench.py's 2^20-point MSM at 16384 lanes (c = 16: 16 windows,
-# 8 merged into each scan of 64 steps over 131072 lanes, 8 x (16384 + 32768)
-# Hillis-Steele lanes) and its 2^22-point NTT (four-step passes of 2^11; the
-# 2^20 and 2^18 transforms use passes of 2^10 and 2^9).
+# extension, bench.py's 2^20-point MSM at 16384 lanes (its scans and
+# Hillis-Steele levels: B_ROWS, C_ROWS) and its 2^22-point NTT (four-step
+# passes of 2^11; the 2^20 and 2^18 transforms use passes of 2^10 and 2^9).
 SIZES = {"k": 18, "ext_k": 20, "msm_log": 20, "lanes": 16384, "ntt_log": 22,
-         "pass_logs": (9, 10, 11), "scan": (64, 8 * 16384), "hs_lanes": 8 * (16384 + 32768),
-         "pool": 4096, "mul_log": 20, "proofs": 3}
+         "pass_logs": (9, 10, 11), "pool": 4096, "mul_log": 20, "proofs": 3}
 # Kernel D's shapes (windows, window bits): every commitment of both proofs
 # (below 2^20 points, _auto_c picks c = 13: 20 windows), the main row; and
 # bench.py's 2^20 MSM (c = 16)
@@ -127,7 +135,36 @@ SWITCHES = {"rowsort": "ZKDCAP_MSM_ROWSORT", "bitonic": "ZKDCAP_MSM_BITONIC"}
 # CUDA functions of a kernel where they are not named <kernel>_kernel (none
 # of kernel F's holds "gather", which gather_ms counts)
 KERNEL_FUNCS = {"bitonic_sort": ("bitonic_tile_kernel", "bitonic_group_kernel",
-                                 "bitonic_rows_kernel", "bitonic_permute_kernel")}
+                                 "bitonic_rows_kernel", "bitonic_permute_kernel"),
+                "ec_add_select": ("ec_add_select_kernel", "ec_add_select_group_kernel")}
+# Kernel B's rows of step 2, (steps M, lanes B, masks, timed calls): the
+# 2^20 MSM's scan (c = 16: 8 windows merged into 64 steps over 8 x 16384
+# lanes, random masks, every run starting at step 0); the scans of the DCAP
+# proof's 2^17-point commitments (M = 8) and of the P-256 proof's 2^18
+# (M = 16), 5 windows x 16384 lanes, masks from sorted random c = 13 window
+# digits as a commitment's scan sees them; and one step over 2^20 lanes
+# with 60% of them adding (onto the identity), the work of the TPU's
+# single-step kernel (ec_kernels.py:149)
+B_ROWS = {"madd_scan": (64, 8 * 16384, "random", 3),
+          "madd_scan/8x81920": (8, 5 * 16384, "digits", 3),
+          "madd_scan/16x81920": (16, 5 * 16384, "digits", 3),
+          "madd_scan/M=1": (1, 1 << 20, "one step", 10)}
+# Kernel C's rows, (lanes, mask, timed calls): the 2^20 MSM's Hillis-Steele
+# level (8 windows x K = 16384 + 32768) and the proofs' (c = 13: 5 windows
+# x K = 16384 + 4096 run partials), half the lanes adding at random; and
+# the aggregation's suffix scans (20 windows x 64 slots), every slot but the
+# last of each window adding
+C_ROWS = {"ec_add_select": (8 * (16384 + 32768), "half", 5),
+          "ec_add_select/102400": (5 * (16384 + 4096), "half", 20),
+          "ec_add_select/1280": (20 * 64, "suffix", 20)}
+# upper bounds of the lane-count buckets of kernel C's launches in the
+# profiled DCAP proof (the aggregation's 20-lane sums up to the levels)
+C_BUCKETS = (32, 256, 2048, 16384, 131072)
+# field operations whose SASS is counted, each alone in a probe kernel
+# (the 64-bit multiply-add versions of kernels A, D, E, G and the
+# carry-chain versions of kernels B and C)
+SASS_PROBES = {op + cc: f"{op}{cc}<Fq>(x, y)" for op in ("fe_mul", "fe_add", "fe_sub")
+               for cc in ("", "_cc")}
 
 
 def fail(msg: str) -> int:
@@ -173,6 +210,70 @@ def int_bound(n_ops: int, n_bytes: int) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def kernel_functions(kname: str) -> tuple[str, ...]:
+    return KERNEL_FUNCS.get(kname, (f"{kname}_kernel",))
+
+
+def sass_counts(nvcc: str) -> dict:
+    """SASS instructions of each field operation of SASS_PROBES, from
+    ``cuobjdump -sass`` of probe kernels that load two elements, apply it
+    once and store the result, less a probe that only loads and stores."""
+    import re
+
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        return {"available": False}
+    work = ROOT / "build" / "probe"
+    work.mkdir(parents=True, exist_ok=True)
+    body = ["#include \"bn254_mont.cuh\"", "using namespace zk;",
+            "__device__ __forceinline__ Fe ld(const uint32_t* p, long i) {",
+            "  Fe r; for (int k = 0; k < 8; k++) r.v[k] = p[i * 8 + k]; return r; }",
+            "__device__ __forceinline__ void st(uint32_t* p, long i, const Fe& a) {",
+            "  for (int k = 0; k < 8; k++) p[i * 8 + k] = a.v[k]; }"]
+    ops = {"copy": "Fe{{x.v[0] ^ y.v[0], x.v[1] ^ y.v[1], x.v[2] ^ y.v[2], x.v[3] ^ y.v[3], "
+                   "x.v[4] ^ y.v[4], x.v[5] ^ y.v[5], x.v[6] ^ y.v[6], x.v[7] ^ y.v[7]}}",
+           **SASS_PROBES}
+    for name, expr in ops.items():
+        body += [f"extern \"C\" __global__ void probe_{name}(const uint32_t* a, const uint32_t* b,"
+                 " uint32_t* o) {",
+                 "  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;",
+                 f"  const Fe x = ld(a, i), y = ld(b, i); st(o, i, {expr}); }}"]
+    (work / "probe.cu").write_text("\n".join(body) + "\n")
+    res = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                          "-cubin", "-I", str(ROOT / "zkdcap_tpu_torch" / "csrc"),
+                          "-o", str(work / "probe.cubin"), str(work / "probe.cu")],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode:
+        raise RuntimeError(f"the SASS probe does not build:\n{res.stdout}{res.stderr}")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(work / "probe.cubin")],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    per, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : probe_(\w+)", line)
+        if m:
+            cur = per.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*(?:\.WIDE|\.HI|\.MOV|\.X)?)", line)
+        if m and cur is not None and m.group(1) != "NOP":
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    base = per.get("copy", {})
+    out = {"available": True}
+    for name in SASS_PROBES:
+        ops_ = {op: n - base.get(op, 0) for op, n in per.get(name, {}).items()}
+        out[name] = {"instructions": sum(per.get(name, {}).values()) - sum(base.values()),
+                     "imad": sum(n for op, n in ops_.items() if op.startswith("IMAD")),
+                     "by_opcode": {op: n for op, n in sorted(ops_.items()) if n}}
+    return out
+
+
+def lane_bucket(n: int) -> str:
+    for top in C_BUCKETS:
+        if n <= top:
+            return f"C lanes <= {top}"
+    return f"C lanes > {C_BUCKETS[-1]}"
+
+
 def max_abs_err(got, ref) -> tuple[float, int]:
     """Largest limb difference and number of differing elements."""
     import torch
@@ -185,11 +286,131 @@ def max_abs_err(got, ref) -> tuple[float, int]:
     return float(err), bad
 
 
-def device_breakdown(fn, top: int = 10, ranges=()) -> dict:
+def kernel_events(prof, names) -> list[float]:
+    """Device ms of each launch of the kernels whose CUDA function names
+    contain one of `names`, in the order they ran."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(n in e.name for n in names)), key=lambda e: e.time_range.start)
+    return [(e.time_range.end - e.time_range.start) / 1e3 for e in evs]
+
+
+def kernel_ms(fn, names, reps: int) -> float:
+    """Device ms per call of fn of the kernels whose CUDA function names
+    contain one of `names`, over `reps` calls after one warm-up
+    (torch.profiler): the kernel's own time, without the host's launch gaps
+    and the wrapper's other work. Raises where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = kernel_events(prof, names)
+    if not ms:
+        raise RuntimeError(f"torch.profiler traced no launch of {names}")
+    return sum(ms) / reps
+
+
+def timed(fn, kname: str, reps: int) -> tuple[float, float]:
+    """(CUDA-event ms per call of fn, kernel_ms of kernel `kname`)."""
+    return cuda_ms(fn, reps), kernel_ms(fn, kernel_functions(kname), reps)
+
+
+def point_pool(dev):
+    """SIZES["pool"] distinct affine points of G1 on `dev` (G + i * step)."""
+    from zkdcap_tpu_torch.curves import BN254_G1
+    from zkdcap_tpu_torch.curves.device_g1 import G1_SPEC, encode_points
+
+    host_pts = [BN254_G1.g]
+    step = BN254_G1.mul(0xABCDEF123457, BN254_G1.g)
+    for _ in range(SIZES["pool"] - 1):
+        host_pts.append(BN254_G1.add(host_pts[-1], step))
+    return encode_points(G1_SPEC, host_pts, device=dev)
+
+
+def scan_row(name: str, pool) -> dict:
+    """Kernel B at B_ROWS[name] on inputs seeded by the name: its output and
+    the plain version's, its times (`timed`) and its work. Shared with
+    ``zkdcap_tpu_torch/tools/kernel_ab.py``, which runs it on two trees."""
+    import zlib
+
+    import torch
+
+    from zkdcap_tpu_torch.curves import ec_kernels as ek
+    from zkdcap_tpu_torch.curves.device_g1 import G1_SPEC
+
+    M, B, kind, reps = B_ROWS[name]
+    dev = pool.device
+    torch.manual_seed(zlib.crc32(name.encode()))
+    idx = torch.randint(0, pool.shape[0], (M * B,), device=dev)
+    rows_pm = ek.pack_affine_rows(pool)[idx].reshape(M, B, 16).transpose(1, 2).contiguous()
+    if kind == "digits":
+        windows, lanes = B // 16384, 16384
+        d = torch.randint(-(1 << 12), 1 << 12, (windows, lanes * M), device=dev).abs()
+        dm = d.sort(dim=1).values.reshape(windows, lanes, M).permute(2, 0, 1).reshape(M, B)
+        same = torch.zeros_like(dm, dtype=torch.bool)
+        same[1:] = dm[1:] == dm[:-1]
+        masks = torch.stack([same, dm != 0, torch.rand(M, B, device=dev) < 0.5], 1)
+    else:
+        masks = torch.rand(M, 3, B, device=dev) < torch.tensor([0.6, 0.97, 0.5], device=dev)[:, None]
+        if kind == "random":
+            masks[0, 0] = False
+    masks = masks.to(torch.int32).contiguous()
+    got = ek.ec_madd_scan_full(G1_SPEC, rows_pm, masks)
+    ms, k_ms = timed(lambda: ek.ec_madd_scan_full(G1_SPEC, rows_pm, masks), "madd_scan", reps)
+    plain_s, ref = wall_s(lambda: ek.ec_madd_scan_plain(G1_SPEC, rows_pm, masks))
+    # a step-lane adds only where valid and same; it reads its row only where valid
+    n_madd = int((masks[:, 0] & masks[:, 1]).sum())
+    n_valid = int(masks[:, 1].sum())
+    return {"got": got, "ref": ref, "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_s * 1e3,
+            "n_mont": MADD_MULS * n_madd, "n_bytes": n_valid * LIMB_BYTES + M * B * (12 + POINT_BYTES),
+            "shape": f"M={M} step{'s' if M > 1 else ''} x B={B} lanes, {kind} masks, "
+                     f"{n_madd} mixed additions"}
+
+
+def add_row(name: str, pool) -> dict:
+    """Kernel C at C_ROWS[name], as scan_row: both fallbacks are checked,
+    fallback p is timed."""
+    import zlib
+
+    import torch
+
+    from zkdcap_tpu_torch.curves import ec_kernels as ek
+    from zkdcap_tpu_torch.curves.device_g1 import G1_SPEC, affine_to_projective
+
+    n, kind, reps = C_ROWS[name]
+    dev = pool.device
+    torch.manual_seed(zlib.crc32(name.encode()))
+    P, Q = (affine_to_projective(G1_SPEC, pool[torch.randint(0, pool.shape[0], (n,), device=dev)])
+            for _ in range(2))
+    if kind == "half":
+        mask = (torch.rand(n, device=dev) < 0.5).to(torch.int32)
+    else:
+        mask = (torch.arange(n, device=dev) % 64 != 63).to(torch.int32)
+    got = ek.ec_add_select(G1_SPEC, P, Q, mask, "p")
+    ms, k_ms = timed(lambda: ek.ec_add_select(G1_SPEC, P, Q, mask, "p"), "ec_add_select", reps)
+    plain_s, ref = wall_s(lambda: ek.ec_add_select_plain(G1_SPEC, P, Q, mask, "p"))
+    got += ek.ec_add_select(G1_SPEC, P, Q, mask, "q")
+    ref += ek.ec_add_select_plain(G1_SPEC, P, Q, mask, "q")
+    # every lane reads its mask and fallback and writes a point; only the
+    # lanes that add read the other operand
+    added = int(mask.sum())
+    return {"got": got, "ref": ref, "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_s * 1e3,
+            "n_mont": ADD_MULS * added, "n_bytes": n * (4 + 2 * POINT_BYTES) + added * POINT_BYTES,
+            "shape": f"n={n} lanes, {added} adding ({kind}), fallback p and q"}
+
+
+def device_breakdown(fn, top: int = 10, ranges=(), sequence=()) -> dict:
     """One run of fn under torch.profiler: its wall time, the device time by
     kernel (self time, summed over launches), the device's busy share and
     the device time of the kernels launched inside each named
-    ``record_function`` range of `ranges`."""
+    ``record_function`` range of `ranges`; with `sequence`, the device ms
+    of each launch of the kernels so named, in order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -221,7 +442,8 @@ def device_breakdown(fn, top: int = 10, ranges=()) -> dict:
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms, "gather_ms": gather_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(r[1] for r in rows), "ranges": in_ranges, "ours": ours,
-            "top": [{"kernel": k[:120], "launches": n, "ms": ms} for k, n, ms in rows[:top]]}
+            "top": [{"kernel": k[:120], "launches": n, "ms": ms} for k, n, ms in rows[:top]],
+            "sequence_ms": kernel_events(prof, sequence) if sequence else []}
 
 
 def sort_checks(record, dev) -> None:
@@ -247,7 +469,7 @@ def sort_checks(record, dev) -> None:
 
     def check(name, fn, plain, lib, batch, n, n_ops, moved, shape):
         got = fn()
-        ms = cuda_ms(fn, 5)
+        ms, k_ms = timed(fn, "bitonic_sort", 5)
         plain_s, ref = wall_s(plain)
         lib_ms = cuda_ms(lib, 5)
         log_n = n.bit_length() - 1
@@ -257,7 +479,7 @@ def sort_checks(record, dev) -> None:
         # comes from the network on key + index and one gather of the other
         # operands: at most two operands go through the network, the rest
         # are moved once (their bytes are in `moved`)
-        record(name, src, rep, got, ref, ms, plain_s * 1e3, 0, 4 * moved, shape,
+        record(name, src, rep, got, ref, ms, k_ms, plain_s * 1e3, 0, 4 * moved, shape,
                library_ms=lib_ms, n_ops=exchanges * (1 + 2 * min(n_ops, 2)))
 
     for label, (wp, log_n, dbits) in SORT_SHAPES.items():
@@ -620,7 +842,7 @@ def main() -> int:
     from zkdcap_tpu_torch.curves import BN254_G1
     from zkdcap_tpu_torch.curves import ec_kernels as ek
     from zkdcap_tpu_torch.curves.device_g1 import (
-        G1_SPEC, affine_to_projective, decode_points, encode_points)
+        G1_SPEC, affine_to_projective, decode_points)
     from zkdcap_tpu_torch.fields import BN254_FQ, BN254_FR, mont, mul_kernels
     from zkdcap_tpu_torch.fields.butterfly_kernels import butterfly, butterfly_plain
     from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
@@ -653,9 +875,21 @@ def main() -> int:
     report["witness_build_s"] = time.perf_counter() - t0
     say(f"build: kernels {report['build_s']:.1f} s, witness evaluator (g++) "
         f"{report['witness_build_s']:.1f} s ({card})")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip(), file=sys.stderr)
+    ptxas = report["ptxas"] = _build.ptxas_report(_build.build_log)
+
+    def kernel_ptxas(kname: str) -> dict:
+        return {f: r for f, r in ptxas.items() if any(k in f for k in kernel_functions(kname))}
+
+    for kname in KERNELS:
+        say(f"ptxas {kname}: " + "; ".join(
+            f"{f[:60]}: {r.get('registers')} registers, {r.get('stack')} B stack, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads"
+            for f, r in kernel_ptxas(kname).items()))
+    report["sass"] = sass_counts(_build._nvcc())
+    say("sass per field operation (probe less load/store): " + (
+        "; ".join(f"{op}: {r['instructions']} instructions, {r['imad']} IMAD-class "
+                  f"{r['by_opcode']}" for op, r in report["sass"].items() if op != "available")
+        if report["sass"]["available"] else "cuobjdump not in the toolkit: not measured"))
 
     def rand_fr(shape) -> torch.Tensor:
         """Canonical Fr limbs (top limb < 0x3000 keeps the value below p)."""
@@ -663,18 +897,13 @@ def main() -> int:
         x[..., 15] &= 0x2FFF
         return x
 
-    n_pool = SIZES["pool"]
-    host_pts = [BN254_G1.g]
-    step = BN254_G1.mul(0xABCDEF123457, BN254_G1.g)
-    for _ in range(n_pool - 1):
-        host_pts.append(BN254_G1.add(host_pts[-1], step))
-    pool = encode_points(G1_SPEC, host_pts, device=dev)
+    pool = point_pool(dev)
     torch.manual_seed(7)
 
     # -- 2. each kernel against its plain version ----------------------------
     kernels = {}
 
-    def record(name, source, replaces, got, ref, ms, plain_ms, n_mont, n_bytes, shape,
+    def record(name, source, replaces, got, ref, ms, kernel_ms, plain_ms, n_mont, n_bytes, shape,
                library_ms=None, n_ops=None):
         err, bad = max_abs_err(got, ref)
         b_ms, b_by = bound(n_mont, n_bytes) if n_ops is None else int_bound(n_ops, n_bytes)
@@ -682,11 +911,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "also_replaces": ALSO_REPLACES.get(name.split("/")[0], []),
             "launches": 0, "max_abs_err": err, "mismatches": bad, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-            "shape": shape}
-        lib = "" if library_ms is None else f", library {library_ms:.3f} ms"
-        say(f"check {name} {shape}: mismatches {bad}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms{lib}, bound {b_ms:.3f} ms ({b_by}) ({card})")
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "shape": shape, "ptxas": kernel_ptxas(name.split("/")[0])}
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        say(f"check {name} {shape}: mismatches {bad}, {ms:.4f} ms (events; the kernel's own "
+            f"{kernel_ms:.4f} ms), plain {plain_ms:.1f} ms{lib}, bound {b_ms:.4f} ms ({b_by}) "
+            f"({card})")
         if bad or err:
             raise AssertionError(f"kernel {name} disagrees with its plain version at {shape}")
 
@@ -701,7 +931,7 @@ def main() -> int:
             tw = _pass_twiddles(log_s, inverse, dev)
             for post in (ptw, None):
                 got = ntt_pass(x, tw, post)
-                ms = cuda_ms(lambda: ntt_pass(x, tw, post), 5)
+                ms, k_ms = timed(lambda: ntt_pass(x, tw, post), "ntt_pass", 5)
                 plain_s, ref = wall_s(lambda: ntt_pass_plain(x, tw, post))
                 n = rows << log_s
                 # stage s multiplies by w^0 (no product) in one butterfly of 2^s
@@ -716,59 +946,33 @@ def main() -> int:
                     else f"ntt_pass/{log_s}/{int(inverse)}/{int(post is not None)}"
                 record(rec_name, "zkdcap_tpu_torch/csrc/ntt_pass.cu",
                        "zkdcap_tpu/fields/pallas_mont.py:257",
-                       (got,), (ref,), ms, plain_s * 1e3, n_mont, n_bytes, shape)
+                       (got,), (ref,), ms, k_ms, plain_s * 1e3, n_mont, n_bytes, shape)
                 del got, ref
 
-    # B: the 2^20 scan shape, M = 64 steps over B = 8 * 16384 lanes
-    M, B = SIZES["scan"]
-    idx = torch.randint(0, n_pool, (M * B,), device=dev)
-    rows_pm = ek.pack_affine_rows(pool)[idx].reshape(M, B, 16).transpose(1, 2).contiguous()
-    masks = (torch.rand(M, 3, B, device=dev) < torch.tensor([0.6, 0.97, 0.5], device=dev)[:, None])
-    masks = masks.to(torch.int32).contiguous()
-    masks[0, 0] = 0
-    got = ek.ec_madd_scan_full(G1_SPEC, rows_pm, masks)
-    ms = cuda_ms(lambda: ek.ec_madd_scan_full(G1_SPEC, rows_pm, masks), 3)
-    plain_s, ref = wall_s(lambda: ek.ec_madd_scan_plain(G1_SPEC, rows_pm, masks))
-    # a step-lane adds only where valid and same; it reads its row only where valid
-    n_madd = int((masks[:, 0] & masks[:, 1]).sum())
-    n_valid = int(masks[:, 1].sum())
-    record("madd_scan", "zkdcap_tpu_torch/csrc/madd_scan.cu",
-           "zkdcap_tpu/curves/ec_kernels.py:459",
-           got, ref, ms, plain_s * 1e3, MADD_MULS * n_madd,
-           n_valid * LIMB_BYTES + M * B * (12 + POINT_BYTES),
-           f"M={M} steps x B={B} lanes, {n_madd} mixed additions")
-    del got, ref, rows_pm, masks
+    # B: the 2^20 MSM's scan and the proofs' (B_ROWS); C: the 2^20 MSM's
+    # Hillis-Steele level and the proofs' level and suffix scans (C_ROWS)
+    def kernel_row(name, source, replaces, r):
+        record(name, source, replaces, r["got"], r["ref"], r["ms"], r["kernel_ms"],
+               r["plain_ms"], r["n_mont"], r["n_bytes"], r["shape"])
 
-    # C: the 2^20 Hillis-Steele level shape, 8 windows x K = 16384 + 32768
-    n = SIZES["hs_lanes"]
-    P = affine_to_projective(G1_SPEC, pool[torch.randint(0, n_pool, (n,), device=dev)])
-    Q = affine_to_projective(G1_SPEC, pool[torch.randint(0, n_pool, (n,), device=dev)])
-    mask = (torch.rand(n, device=dev) < 0.5).to(torch.int32)
-    got = ek.ec_add_select(G1_SPEC, P, Q, mask, "p")
-    ms = cuda_ms(lambda: ek.ec_add_select(G1_SPEC, P, Q, mask, "p"), 5)
-    plain_s, ref = wall_s(lambda: ek.ec_add_select_plain(G1_SPEC, P, Q, mask, "p"))
-    got_q = ek.ec_add_select(G1_SPEC, P, Q, mask, "q")
-    ref_q = ek.ec_add_select_plain(G1_SPEC, P, Q, mask, "q")
-    # every lane reads its mask and fallback and writes a point; only the
-    # lanes that add read the other operand
-    added = int(mask.sum())
-    record("ec_add_select", "zkdcap_tpu_torch/csrc/ec_add_select.cu",
-           "zkdcap_tpu/curves/ec_kernels.py:102",
-           got + got_q, ref + ref_q, ms, plain_s * 1e3, ADD_MULS * added,
-           n * (4 + 2 * POINT_BYTES) + added * POINT_BYTES,
-           f"n={n} lanes, {added} adding, fallback p and q")
-    del got, ref, got_q, ref_q, P, Q
+    for name in B_ROWS:
+        kernel_row(name, "zkdcap_tpu_torch/csrc/madd_scan.cu", "zkdcap_tpu/curves/ec_kernels.py:"
+                   + ("149" if name == "madd_scan/M=1" else "459"), scan_row(name, pool))
+        torch.cuda.empty_cache()
+    for name in C_ROWS:
+        kernel_row(name, "zkdcap_tpu_torch/csrc/ec_add_select.cu",
+                   "zkdcap_tpu/curves/ec_kernels.py:102", add_row(name, pool))
 
     # D: the proofs' join (20 windows of 13 bits) and the 2^20 MSM's (16 of
     # 16); a dependent chain, so its time per step is printed too
     for name, (W, c) in JOIN_SHAPES.items():
         T = affine_to_projective(G1_SPEC, pool[:W])
         got = ek.ec_window_join(G1_SPEC, T, c)
-        ms = cuda_ms(lambda: ek.ec_window_join(G1_SPEC, T, c), 10)
+        ms, k_ms = timed(lambda: ek.ec_window_join(G1_SPEC, T, c), "window_join", 10)
         plain_s, ref = wall_s(lambda: ek.ec_window_join_plain(G1_SPEC, T, c))
         steps = c * (W - 1) + W - 1
         record(name, "zkdcap_tpu_torch/csrc/window_join.cu", "zkdcap_tpu/curves/ec_kernels.py:275",
-               got, ref, ms, plain_s * 1e3, (W - 1) * (c * DBL_MULS + ADD_MULS),
+               got, ref, ms, k_ms, plain_s * 1e3, (W - 1) * (c * DBL_MULS + ADD_MULS),
                (W + 1) * POINT_BYTES, f"W={W} windows, c={c}")
         kernels[name]["us_per_step"] = 1e3 * ms / steps
         say(f"check {name}: {1e3 * ms / steps:.3f} us per chain step ({steps} dependent steps: "
@@ -788,34 +992,16 @@ def main() -> int:
             out = torch.empty_like(a)
             args = (a.data_ptr(), bb.data_ptr(), out.data_ptr(), n_mul, bb.shape[0], 1,
                     mul_kernels._FIELD_CODE[fp])
-            ms = cuda_ms(lambda: _build.launch("mont_mul", *args), 50)
+            ms, k_ms = timed(lambda: _build.launch("mont_mul", *args), "mont_mul", 50)
             plain_s, ref = wall_s(lambda: mul_kernels.mont_mul_plain(fp, a, bb))
             # a and out once each, b once per element or one row
             n_bytes = LIMB_BYTES * (2 * n_mul + bb.shape[0])
             record("mont_mul" if (fname, mode) == ("fr", "full") else f"mont_mul/{fname}/{mode}",
                    "zkdcap_tpu_torch/csrc/mont_mul.cu", "zkdcap_tpu/fields/pallas_mont.py:153",
-                   (got, out), (ref, ref), ms, plain_s * 1e3, n_mul, n_bytes,
+                   (got, out), (ref, ref), ms, k_ms, plain_s * 1e3, n_mul, n_bytes,
                    f"{fname.capitalize()}, n=2^{SIZES['mul_log']}, b {mode}")
             del got, out, ref
     del a, b
-
-    # B at M = 1: one mixed-addition step over 2^20 lanes (the contract of
-    # the TPU's single-step kernel, ec_kernels.py:149)
-    B1 = 1 << SIZES["mul_log"]
-    idx = torch.randint(0, n_pool, (B1,), device=dev)
-    rows1 = ek.pack_affine_rows(pool)[idx].T.contiguous()[None]
-    masks1 = (torch.rand(1, 3, B1, device=dev) < torch.tensor([0.6, 0.97, 0.5], device=dev)[:, None])
-    masks1 = masks1.to(torch.int32).contiguous()
-    got = ek.ec_madd_scan_full(G1_SPEC, rows1, masks1)
-    ms = cuda_ms(lambda: ek.ec_madd_scan_full(G1_SPEC, rows1, masks1), 10)
-    plain_s, ref = wall_s(lambda: ek.ec_madd_scan_plain(G1_SPEC, rows1, masks1))
-    n_madd = int((masks1[:, 0] & masks1[:, 1]).sum())
-    n_valid = int(masks1[:, 1].sum())
-    record("madd_scan/M=1", "zkdcap_tpu_torch/csrc/madd_scan.cu",
-           "zkdcap_tpu/curves/ec_kernels.py:149", got, ref, ms, plain_s * 1e3,
-           MADD_MULS * n_madd, n_valid * LIMB_BYTES + B1 * (12 + POINT_BYTES),
-           f"M=1 step x B={B1} lanes, {n_madd} mixed additions")
-    del got, ref, rows1, masks1
 
     # F: the MSM's sorts at the main path's shapes
     sort_checks(record, dev)
@@ -827,13 +1013,13 @@ def main() -> int:
         tw = _flat_twiddles(log_n, False, dev)
         got = butterfly(x, tw, s)
         out = torch.empty_like(x)
-        ms = cuda_ms(lambda: butterfly(x, tw, s, out=out), 10)
+        ms, k_ms = timed(lambda: butterfly(x, tw, s, out=out), "butterfly", 10)
         plain_s, ref = wall_s(lambda: butterfly_plain(x, tw, s))
         # a butterfly reads lo and hi and writes two rows; the m distinct
         # twiddles are read once each; butterfly 0's product is by w^0 = 1
         n_bf = rows << s
         record(name, "zkdcap_tpu_torch/csrc/butterfly.cu", "zkdcap_tpu/fields/pallas_mont.py:36",
-               (got,), (ref,), ms, plain_s * 1e3, rows * ((1 << s) - 1),
+               (got,), (ref,), ms, k_ms, plain_s * 1e3, rows * ((1 << s) - 1),
                LIMB_BYTES * (4 * n_bf + (1 << s)), f"stage {s} of 2^{log_n} x {rows} rows")
         del x, got, out, ref
     torch.cuda.empty_cache()
@@ -1104,14 +1290,48 @@ def main() -> int:
     base = breakdown[name]
     if base["device_busy_ms"]:
         say(f"profile {name}: gathers {base['gather_ms']:.1f} ms ({card})")
-    # one DCAP proof with the default NTT and one under the flat path
+    # one DCAP proof with the default NTT, kernel C's launches counted and
+    # timed by lane count (the wrapper's launches in order, matched to the
+    # profiled kernels in order), and one under the flat path
     dcap_once = dcap.pop("prove_once")
-    for label, fn in (("default", dcap_once), (f"{NO_FOUR_STEP}=1", switched(NO_FOUR_STEP, dcap_once))):
+    c_lanes = []
+
+    def by_lanes(fn):
+        def run():
+            launch = _build.launch
+
+            def counted(name, *args):
+                if name == "ec_add_select":
+                    c_lanes.append(args[10])
+                return launch(name, *args)
+            _build.launch = counted
+            try:
+                return fn()
+            finally:
+                _build.launch = launch
+        return run
+
+    for label, fn in (("default", by_lanes(dcap_once)),
+                      (f"{NO_FOUR_STEP}=1", switched(NO_FOUR_STEP, dcap_once))):
         name = f"DcapProver.create_proof k=17 {label}"
-        b = breakdown[name] = device_breakdown(fn, top=10)
+        b = breakdown[name] = device_breakdown(
+            fn, top=10, sequence=kernel_functions("ec_add_select") if label == "default" else ())
         if not b["device_busy_ms"]:
             say(f"profile {name}: device time not measured (no CUDA events in the trace)")
             continue
+        if label == "default":
+            hist = {}
+            matched = len(b["sequence_ms"]) == len(c_lanes)
+            for i, n in enumerate(c_lanes):
+                h = hist.setdefault(lane_bucket(n), {"launches": 0, "device_ms": 0.0})
+                h["launches"] += 1
+                h["device_ms"] = h["device_ms"] + b["sequence_ms"][i] if matched else None
+            order = [lane_bucket(top) for top in C_BUCKETS] + [lane_bucket(C_BUCKETS[-1] + 1)]
+            b["c_by_lanes"] = hist = {lb: hist[lb] for lb in order if lb in hist}
+            say(f"profile {name}: kernel C by lanes: " + "; ".join(
+                f"{lb}: {h['launches']} launches, "
+                + (f"{h['device_ms']:.2f} ms" if matched else "device ms not matched")
+                for lb, h in hist.items()) + f" ({card})")
         top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.1f} ms"
                         for t in b["top"][:8])
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
@@ -1121,16 +1341,18 @@ def main() -> int:
             f"kernels A-G: {ours}; top: {top} ({card})")
 
     # the device time each kernel loses per proof against its bound: its
-    # profiled device ms times (1 - bound/ms) at its main row's shape in
-    # step 2, the largest over the profiled proofs of each circuit; kernels
-    # slower than the PyTorch call for the same function first
+    # profiled device ms times (1 - bound/kernel_ms) at its main row's shape
+    # in step 2 (the kernel's own device time, as the profiles count it),
+    # the largest over the profiled proofs of each circuit; kernels whose
+    # wrapper is slower than the PyTorch call for the same function (both
+    # timed by CUDA events) first
     ranking = []
     proof_profiles = {"P-256": [n for n in breakdown if n.startswith("ECDSAProver")],
                       "DCAP": [n for n in breakdown if n.startswith("DcapProver")]}
     for kname in KERNELS:
         row = kernels[kname]
-        slack = max(0.0, 1 - row["bound_ms"] / row["ms"])
-        entry = {"kernel": kname, "ms_over_bound": row["ms"] / row["bound_ms"],
+        slack = max(0.0, 1 - row["bound_ms"] / row["kernel_ms"])
+        entry = {"kernel": kname, "ms_over_bound": row["kernel_ms"] / row["bound_ms"],
                  "slower_than_library": row["library_ms"] is not None
                  and row["ms"] > row["library_ms"]}
         for circuit, names in proof_profiles.items():

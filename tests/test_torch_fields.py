@@ -139,6 +139,7 @@ def test_cuda_header_constants_match_params():
         assert inv(struct) == (-pow(params.p, -1, 1 << 32)) % (1 << 32)
     assert words("ONE", "Fq") == R % BN254_FQ.p
     chain = src.split("Fe mul_b3(const Fe& a) {")[1].split("\n}")[0]
-    doublings = chain.count("fe_add<Fq>(a, a)") + chain.count("fe_add<Fq>(t, t)")
-    assert chain.rstrip().endswith("return fe_add<Fq>(t, a);")
+    add = "fe_add_cc<Fq>"  # the point formulas' (carry-chain) addition
+    doublings = chain.count(f"{add}(a, a)") + chain.count(f"{add}(t, t)")
+    assert chain.rstrip().endswith(f"return {add}(t, a);")
     assert 2 ** doublings + 1 == G1_SPEC.b3

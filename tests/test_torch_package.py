@@ -54,6 +54,8 @@ def test_import_pulls_in_no_jax():
         "import zkdcap_tpu_torch.chips.base64, zkdcap_tpu_torch.chips.builder\n"
         "import zkdcap_tpu_torch.plonk.mock, zkdcap_tpu_torch.circuits.dcap\n"
         "import zkdcap_tpu_torch.runtime.circuit_prover, zkdcap_tpu_torch.runtime.dcap_prover\n"
+        "import zkdcap_tpu_torch.tools.kernel_variants, zkdcap_tpu_torch.tools.kernel_ab\n"
+        "import zkdcap_tpu_torch.tools.proof_ab\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -67,7 +68,7 @@ launches = {"ntt_pass": 0, "madd_scan": 0, "ec_add_select": 0, "window_join": 0,
 _lib = None
 _witness_lib = None
 _lock = threading.Lock()
-build_log = ""
+build_log = ""  # nvcc's output (-Xptxas -v: registers, spills) of the current library
 
 
 def reset_launches() -> None:
@@ -102,7 +103,9 @@ def build() -> Path:
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / "sources.sha256"
     digest = _digest()
+    log_path = BUILD_DIR / "build.log"
     if lib_path.exists() and stamp.exists() and stamp.read_text() == digest:
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     nvcc = _nvcc()
     # objects and the library go to per-process names first, so that
@@ -131,6 +134,7 @@ def build() -> Path:
         if res.returncode:
             raise RuntimeError(f"link failed:\n{res.stdout}{res.stderr}")
         os.replace(tmp, lib_path)
+        log_path.write_text(build_log)
         stamp.write_text(digest)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -158,6 +162,28 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed: error {err}")
     launches[name] += 1
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spills of each kernel function in nvcc's
+    ``-Xptxas -v`` output, by mangled name."""
+    funcs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) or \
+            re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            funcs[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            funcs[cur]["registers"] = int(m.group(1))
+    return funcs
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:
