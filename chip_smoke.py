@@ -14,9 +14,14 @@ fails, printing no result, without them or outside a checkout of the repo.
 2. runs each kernel and its plain torch version on the same seeded inputs at
    the main paths' shapes and requires an exact match, timing both (and,
    for kernel F, the PyTorch sort + gather that computes the same function);
-   kernel B also at the proofs' scans (8 and 16 steps over 5 x 16384
-   lanes) and kernel C at the proofs' Hillis-Steele level (102,400 lanes)
-   and suffix scans (1,280 lanes); each kernel's ``ms`` is the CUDA-event
+   kernel A also at the DCAP proof's passes (2^8 x 22 * 2^9 and 2^9 x 22 *
+   2^8 rows, 2^9 x 2^10 and 2^10 x 2^9) and in the 2^22 transforms' own
+   strided layouts (the four-step passes' columns and transposed output,
+   the flat pass's bit-reversed columns), every input with the edge values
+   0, 1, p - 1 and R (``A_ROWS``); kernel B also at the proofs' scans (8
+   and 16 steps over 5 x 16384 lanes) and kernel C at the proofs'
+   Hillis-Steele level (102,400 lanes) and suffix scans (1,280 lanes); each
+   kernel's ``ms`` is the CUDA-event
    time around back-to-back calls of its wrapper, its ``kernel_ms`` the
    device time of its own CUDA functions per call (torch.profiler);
    kernel G at the top stages of the DCAP proof's flat 2^17 (22 advice
@@ -26,7 +31,7 @@ fails, printing no result, without them or outside a checkout of the repo.
 3. drives the commitment engine at k = 18 through its entry points, each
    phase against an independent host oracle: gen_srs(18), commit_lagrange
    and commit_many of 2^18-point polys, the Domain(18, 20) coset round trip,
-   a 2^20-point msm_device at 16384 lanes, and a 2^22-point NTT; then the
+   a 2^20-point msm_device at 16384 lanes, 2^22- and 2^19-point NTTs; then the
    2^20 MSM and the 2^18 commitment again under ``ZKDCAP_MSM_ROWSORT=1`` and
    ``ZKDCAP_MSM_BITONIC=1``, equal to the default path's points; the flat
    NTT: 2^23 and 2^24 round trips and sparse polys against host sums, the
@@ -61,8 +66,12 @@ fails, printing no result, without them or outside a checkout of the repo.
 7. profiles the engine's phases (the 2^20 MSM also under each sort switch),
    one k = 18 P-256 proof under each of the three sorts and one DCAP proof
    under each NTT setting with torch.profiler, kernel C's launches in the
-   default DCAP proof counted and timed by lane count; then ranks the
-   kernels by the device time each loses per proof against its bound;
+   default DCAP proof counted and timed by lane count, every NTT in a
+   marked range (the device ms of torch's kernels inside it: the copies and
+   gathers around kernel A) and the NTT calls of the default proofs listed
+   in the report (``ntt_calls``, which ``tools/kernel_ab.py`` replays); then
+   ranks the kernels by the device time each loses per proof against its
+   bound;
 8. prints the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -71,6 +80,7 @@ Everything it prints also lands in ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -107,9 +117,10 @@ ALSO_REPLACES = {
 # The main path's shapes: a k = 18 SRS and commitments, the Domain(18, 20)
 # extension, bench.py's 2^20-point MSM at 16384 lanes (its scans and
 # Hillis-Steele levels: B_ROWS, C_ROWS) and its 2^22-point NTT (four-step
-# passes of 2^11; the 2^20 and 2^18 transforms use passes of 2^10 and 2^9).
+# passes of 2^11; the 2^20 and 2^18 transforms use passes of 2^10 and 2^9),
+# and the DCAP proof's extended 2^19 (passes of 2^9 and 2^10).
 SIZES = {"k": 18, "ext_k": 20, "msm_log": 20, "lanes": 16384, "ntt_log": 22,
-         "pass_logs": (9, 10, 11), "pool": 4096, "mul_log": 20, "proofs": 3}
+         "ntt_ext_log": 19, "pass_logs": (9, 10, 11), "pool": 4096, "mul_log": 20, "proofs": 3}
 # Kernel D's shapes (windows, window bits): every commitment of both proofs
 # (below 2^20 points, _auto_c picks c = 13: 20 windows), the main row; and
 # bench.py's 2^20 MSM (c = 16)
@@ -124,6 +135,8 @@ BUTTERFLY_SHAPES = {"butterfly/2^17": (22, 17), "butterfly": (1, 19), "butterfly
 # the flat path's sizes in the engine step, and Domain(21, 23)
 FLAT_LOGS, FLAT_DOMAIN = (23, 24), (21, 23)
 NO_FOUR_STEP = "ZKDCAP_NO_FOUR_STEP"
+# the record_function range around every NTT in step 7's profiles
+NTT_RANGE = "ntt _transform"
 # the blinding seed of the k = 18 layout proofs
 PROOF_SEED = b"chip-smoke-k18"
 # Kernel F's shapes on the main path: the window groups of a 2^18 commitment
@@ -157,6 +170,31 @@ B_ROWS = {"madd_scan": (64, 8 * 16384, "random", 3),
 C_ROWS = {"ec_add_select": (8 * (16384 + 32768), "half", 5),
           "ec_add_select/102400": (5 * (16384 + 4096), "half", 20),
           "ec_add_select/1280": (20 * 64, "suffix", 20)}
+# Kernel A's rows of step 2, (log S, rows, inverse, log n of the four-step
+# twiddles post-multiplied or None, layout, timed calls): each size of
+# SIZES["pass_logs"] over as many rows, both directions, with the
+# 2^(2S)-point four-step twiddles and without (the main row: 2^11 x 2048,
+# forward, post-multiplied, the 2^22 transform's pass A); the proofs' passes:
+# the DCAP proof's 2^17 transforms of its 22 advice columns (2^8 over 22 x
+# 2^9 columns with the twiddles, 2^9 over 22 x 2^8 rows) and its 2^19
+# extension (2^9 over 2^10 with, 2^10 over 2^9 without), on contiguous rows;
+# and the 2^22 four-step passes in their own strided layouts: pass A reads
+# the columns of the (2^11, 2^11) array, pass B reads the columns of its
+# scratch and writes the transposed output; and the flat 2^22 transform's
+# pass, which reads the columns in bit-reversed order. Every input holds the
+# edge values 0, 1, p - 1 and R (elements 0-3 of every row; rows 0 and 1 all
+# p - 1 and all R).
+A_ROWS = {("ntt_pass" if (s, inv, post) == (11, False, True)
+           else f"ntt_pass/{s}/{int(inv)}/{int(post)}"): (s, 1 << s, inv, 2 * s if post else None,
+                                                         "rows", 5)
+          for s in (9, 10, 11) for inv in (False, True) for post in (True, False)}
+A_ROWS.update({"ntt_pass/2^8x11264": (8, 22 << 9, False, 17, "rows", 10),
+               "ntt_pass/2^9x5632": (9, 22 << 8, False, None, "rows", 10),
+               "ntt_pass/2^9x1024": (9, 1 << 10, False, 19, "rows", 10),
+               "ntt_pass/2^10x512": (10, 1 << 9, False, None, "rows", 10),
+               "ntt_pass/4step-A": (11, 1 << 11, False, 22, "columns", 5),
+               "ntt_pass/4step-B": (11, 1 << 11, False, None, "transposed", 5),
+               "ntt_pass/flat": (11, 1 << 11, False, None, "bit-reversed columns", 5)})
 # upper bounds of the lane-count buckets of kernel C's launches in the
 # profiled DCAP proof (the aggregation's 20-lane sums up to the levels)
 C_BUCKETS = (32, 256, 2048, 16384, 131072)
@@ -331,6 +369,70 @@ def point_pool(dev):
     for _ in range(SIZES["pool"] - 1):
         host_pts.append(BN254_G1.add(host_pts[-1], step))
     return encode_points(G1_SPEC, host_pts, device=dev)
+
+
+def pass_row(name: str, dev) -> dict:
+    """Kernel A at A_ROWS[name] on inputs seeded by the name: its output and
+    the plain version's, its times (`timed`) and its work. Shared with
+    ``zkdcap_tpu_torch/tools/kernel_ab.py``, which runs the rows of layout
+    "rows" (the call every tree's wrapper takes) on two trees."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from zkdcap_tpu_torch.fields import BN254_FR, mont
+    from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
+    from zkdcap_tpu_torch.fields.params import R, int_to_limbs
+    from zkdcap_tpu_torch.ntt.ntt import _four_step_twiddles, _pass_twiddles
+
+    log_s, rows, inverse, ptw_log, layout, reps = A_ROWS[name]
+    size, p = 1 << log_s, BN254_FR.p
+    torch.manual_seed(zlib.crc32(name.encode()))
+    base = torch.randint(0, 1 << 16, (rows * size, 16), dtype=torch.int32, device=dev)
+    base[:, 15] &= 0x2FFF  # canonical: below 0x3000 * 2^240 < p
+    # the logical (rows, size, 16) view: rows, or the columns of (size, rows)
+    x = base.view(rows, size, 16) if layout == "rows" else base.view(size, rows, 16).transpose(0, 1)
+    edges = torch.from_numpy(np.stack([int_to_limbs(v) for v in (0, 1, p - 1, R % p)])
+                             .astype(np.int32)).to(dev)
+    x[:, :4] = edges
+    x[0] = edges[2]
+    x[1] = edges[3]
+    tw = _pass_twiddles(log_s, inverse, dev)
+    post = None if ptw_log is None else _four_step_twiddles(ptw_log, inverse, dev)
+    out = None
+    if layout == "columns":
+        out = torch.empty(rows, size, 16, dtype=torch.int32, device=dev)
+    elif layout == "transposed":
+        out = torch.empty(rows * size, 16, dtype=torch.int32, device=dev)
+        out = out.view(size, rows, 16).transpose(0, 1)
+
+    rev = layout == "bit-reversed columns"
+
+    def call():
+        if out is None and not rev:
+            return ntt_pass(x, tw, post)  # the call every tree's wrapper takes
+        return ntt_pass(x, tw, post, out=out, rev_rows=rev)
+
+    got = call()
+    ms, k_ms = timed(call, "ntt_pass", reps)
+    plain_s, ref = wall_s(lambda: ntt_pass_plain(x, tw, post, rev_rows=True) if rev
+                          else ntt_pass_plain(x, tw, post))
+    n = rows * size
+    # stage s multiplies by w^0 (no product) in one butterfly of 2^s; the
+    # post-multiply by R (the Montgomery one) is no product either
+    n_mont = rows * sum((1 << (log_s - 1)) - (1 << (log_s - 1 - s)) for s in range(log_s))
+    period = 0 if post is None else post.shape[0]
+    if post is not None:
+        one = mont.one_mont(BN254_FR, device=dev)
+        n_mont += int((post != one).any(-1).sum()) * (n // period)
+    # x and the output once each, the post-multiplier's table once, the stage twiddles once
+    n_bytes = LIMB_BYTES * (2 * n + period + size // 2)
+    post_mul = "no post-mul" if post is None else f"post-mul by the 2^{ptw_log} four-step twiddles"
+    shape = f"pass 2^{log_s} x {rows} rows, {'inv' if inverse else 'fwd'}, {post_mul}, {layout}, " \
+            "edge values"
+    return {"got": (got,), "ref": (ref,), "ms": ms, "kernel_ms": k_ms, "plain_ms": plain_s * 1e3,
+            "n_mont": n_mont, "n_bytes": n_bytes, "shape": shape}
 
 
 def scan_row(name: str, pool) -> dict:
@@ -845,10 +947,10 @@ def main() -> int:
         G1_SPEC, affine_to_projective, decode_points)
     from zkdcap_tpu_torch.fields import BN254_FQ, BN254_FR, mont, mul_kernels
     from zkdcap_tpu_torch.fields.butterfly_kernels import butterfly, butterfly_plain
-    from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
     from zkdcap_tpu_torch.msm import msm_device
     from zkdcap_tpu_torch.ntt import Domain, intt, ntt
-    from zkdcap_tpu_torch.ntt.ntt import _flat_twiddles, _four_step_twiddles, _pass_twiddles
+    ntt_module = importlib.import_module("zkdcap_tpu_torch.ntt.ntt")
+    from zkdcap_tpu_torch.ntt.ntt import _flat_twiddles
 
     dev = torch.device("cuda")
     out_dir = ROOT / "build"
@@ -920,41 +1022,19 @@ def main() -> int:
         if bad or err:
             raise AssertionError(f"kernel {name} disagrees with its plain version at {shape}")
 
-    # A: NTT passes 2^9, 2^10, 2^11 over 2^18, 2^20, 2^22 elements
-    main_pass = max(SIZES["pass_logs"])
-    one = mont.one_mont(BN254_FR, device=dev)
-    for log_s in SIZES["pass_logs"]:
-        rows = 1 << log_s
-        x = rand_fr((rows, 1 << log_s))
-        ptw = _four_step_twiddles(2 * log_s, False, dev)
-        for inverse in (False, True):
-            tw = _pass_twiddles(log_s, inverse, dev)
-            for post in (ptw, None):
-                got = ntt_pass(x, tw, post)
-                ms, k_ms = timed(lambda: ntt_pass(x, tw, post), "ntt_pass", 5)
-                plain_s, ref = wall_s(lambda: ntt_pass_plain(x, tw, post))
-                n = rows << log_s
-                # stage s multiplies by w^0 (no product) in one butterfly of 2^s
-                n_mont = rows * sum((1 << (log_s - 1)) - (1 << (log_s - 1 - s))
-                                    for s in range(log_s))
-                if post is not None:
-                    n_mont += int((post != one).any(-1).sum())
-                n_bytes = LIMB_BYTES * (2 * n + (n if post is not None else 0) + (1 << log_s) // 2)
-                shape = f"pass 2^{log_s} x {rows} rows, {'inv' if inverse else 'fwd'}, " \
-                        f"{'post-mul' if post is not None else 'no post-mul'}"
-                rec_name = "ntt_pass" if (log_s, inverse, post is not None) == (main_pass, False, True) \
-                    else f"ntt_pass/{log_s}/{int(inverse)}/{int(post is not None)}"
-                record(rec_name, "zkdcap_tpu_torch/csrc/ntt_pass.cu",
-                       "zkdcap_tpu/fields/pallas_mont.py:257",
-                       (got,), (ref,), ms, k_ms, plain_s * 1e3, n_mont, n_bytes, shape)
-                del got, ref
-
-    # B: the 2^20 MSM's scan and the proofs' (B_ROWS); C: the 2^20 MSM's
-    # Hillis-Steele level and the proofs' level and suffix scans (C_ROWS)
+    # A: NTT passes 2^9, 2^10, 2^11 over 2^18, 2^20, 2^22 elements, the
+    # proofs' passes and the four-step layouts (A_ROWS)
     def kernel_row(name, source, replaces, r):
         record(name, source, replaces, r["got"], r["ref"], r["ms"], r["kernel_ms"],
                r["plain_ms"], r["n_mont"], r["n_bytes"], r["shape"])
 
+    for name in A_ROWS:
+        kernel_row(name, "zkdcap_tpu_torch/csrc/ntt_pass.cu",
+                   "zkdcap_tpu/fields/pallas_mont.py:257", pass_row(name, dev))
+        torch.cuda.empty_cache()
+
+    # B: the 2^20 MSM's scan and the proofs' (B_ROWS); C: the 2^20 MSM's
+    # Hillis-Steele level and the proofs' level and suffix scans (C_ROWS)
     for name in B_ROWS:
         kernel_row(name, "zkdcap_tpu_torch/csrc/madd_scan.cu", "zkdcap_tpu/curves/ec_kernels.py:"
                    + ("149" if name == "madd_scan/M=1" else "459"), scan_row(name, pool))
@@ -1141,6 +1221,19 @@ def main() -> int:
         if mont.decode_ints(BN254_FR, ev[j : j + 1])[0] != want:
             raise AssertionError(f"ntt at w^{j}")
     say(f"ntt 2^{SIZES['ntt_log']}: intt round trip exact; f(w^j) equals host Horner at two j")
+    # the DCAP proof's extended size: four-step passes of 2^9 and 2^10
+    n19 = 1 << SIZES["ntt_ext_log"]
+    a19 = rand_fr((n19,))
+    ev19 = phase(f"ntt 2^{SIZES['ntt_ext_log']}", lambda: ntt(BN254_FR, a19))
+    if not torch.equal(phase(f"intt 2^{SIZES['ntt_ext_log']}", lambda: intt(BN254_FR, ev19)), a19):
+        raise AssertionError(f"intt(ntt(a)) != a at 2^{SIZES['ntt_ext_log']}")
+    j = int(gen.integers(2, n19))
+    w19 = pow(BN254_FR.nth_root_of_unity(SIZES["ntt_ext_log"]), j, r_ord)
+    if mont.decode_ints(BN254_FR, ev19[j : j + 1])[0] != horner(mont.decode_ints(BN254_FR, a19),
+                                                                   w19):
+        raise AssertionError(f"ntt 2^{SIZES['ntt_ext_log']} at w^{j}")
+    say(f"ntt 2^{SIZES['ntt_ext_log']}: intt round trip exact; f(w^{j}) equals host Horner")
+    del a19, ev19
 
     # the flat path: kernel A's chunk pass and kernel G's stages
     os.environ[NO_FOUR_STEP] = "1"
@@ -1212,7 +1305,33 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the DCAP prover's path")
 
     # -- 7. where the device time goes: one profiled run of each phase --------
+    # every NTT (ntt_module._transform) runs in a marked range, so that the
+    # device time of its non-A kernels (the copies of a four-step transform,
+    # the flat path's gather) shows per profile; the calls of the default
+    # proofs are listed (tools/kernel_ab.py replays them on two trees)
     breakdown = {}
+    transform = ntt_module._transform
+    ntt_calls = []
+
+    def marked_transform(params_, batch, inverse):
+        ntt_calls.append([int(batch.shape[0]), int(batch.shape[1]), bool(inverse)])
+        with torch.profiler.record_function(NTT_RANGE):
+            return transform(params_, batch, inverse)
+
+    def ntt_share(name, b):
+        """The device ms of profile `name`'s NTT range and A's, printed and
+        kept in b["ntt"]. The profiler attributes to a range the kernels of
+        the torch operations called inside it (the four-step copies, the
+        flat path's gather), not the port's kernels, which the library
+        launches itself (A, G, E): those are counted by name."""
+        rng = b["ranges"].get(NTT_RANGE, {"calls": 0, "device_ms": 0.0})
+        a = b["ours"].get("ntt_pass", {"ms": 0.0, "launches": 0})
+        b["ntt"] = {"calls": rng["calls"], "torch_ms": rng["device_ms"], "a_ms": a["ms"],
+                    "a_launches": a["launches"]}
+        say(f"profile {name}: NTT x{rng['calls']}: torch's kernels inside (copies, gathers) "
+            f"{rng['device_ms']:.2f} ms; A x{a['launches']} {a['ms']:.2f} ms ({card})")
+
+    ntt_module._transform = marked_transform
     def switched(var, fn):
         def run():
             os.environ[var] = "1"
@@ -1231,10 +1350,12 @@ def main() -> int:
         f"ntt 2^{SIZES['ntt_log']}": lambda: ntt(BN254_FR, a22),
     }
     for name, fn in profiled.items():
-        b = breakdown[name] = device_breakdown(fn)
+        b = breakdown[name] = device_breakdown(fn, ranges=(NTT_RANGE,))
         if not b["device_busy_ms"]:
             say(f"profile {name}: device time not measured (no CUDA events in the trace)")
             continue
+        if name.startswith("ntt"):
+            ntt_share(name, b)
         top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.2f} ms"
                         for t in b["top"][:6])
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.2f} ms" for kn, r in b["ours"].items())
@@ -1256,30 +1377,34 @@ def main() -> int:
     for fn, label in marked.items():
         setattr(mont, fn, in_range(label, originals[fn]))
     prove_once = service.pop("prove_once")
+    ntt_calls.clear()
     try:
         b = breakdown[name] = device_breakdown(prove_once, top=15,
-                                               ranges=tuple(marked.values()))
+                                               ranges=(*marked.values(), NTT_RANGE))
     finally:
         for fn, orig in originals.items():
             setattr(mont, fn, orig)
+    report["ntt_calls"] = {"P-256": list(ntt_calls)}
     if b["device_busy_ms"]:
         top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.1f} ms"
                         for t in b["top"][:8])
         share = "; ".join(f"{lb} x{r['calls']} {r['device_ms']:.1f} ms "
                           f"({100 * r['device_ms'] / b['device_busy_ms']:.1f}% of busy)"
-                          for lb, r in b["ranges"].items())
+                          for lb, r in b["ranges"].items() if lb != NTT_RANGE)
         ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
         say(f"profile {name}: {b['wall_ms_profiled']:.0f} ms wall under the profiler, "
             f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
             f"{b['kernel_launches']} kernel launches; ranges: {share}; kernels A-G: {ours}; "
             f"top: {top} ({card})")
+        ntt_share(name, b)
     else:
         say(f"profile {name}: device time not measured (no CUDA events in the trace)")
     # one k = 18 proof under each sort switch: kernel F's and the gathers'
     # device time per proof
     for var in SWITCHES.values():
         sw_name = f"{name} {var}=1"
-        b = breakdown[sw_name] = device_breakdown(switched(var, prove_once), top=8)
+        b = breakdown[sw_name] = device_breakdown(switched(var, prove_once), top=8,
+                                                  ranges=(NTT_RANGE,))
         if not b["device_busy_ms"]:
             say(f"profile {sw_name}: device time not measured (no CUDA events in the trace)")
             continue
@@ -1314,8 +1439,12 @@ def main() -> int:
     for label, fn in (("default", by_lanes(dcap_once)),
                       (f"{NO_FOUR_STEP}=1", switched(NO_FOUR_STEP, dcap_once))):
         name = f"DcapProver.create_proof k=17 {label}"
+        ntt_calls.clear()
         b = breakdown[name] = device_breakdown(
-            fn, top=10, sequence=kernel_functions("ec_add_select") if label == "default" else ())
+            fn, top=10, ranges=(NTT_RANGE,),
+            sequence=kernel_functions("ec_add_select") if label == "default" else ())
+        if label == "default":
+            report["ntt_calls"]["DCAP"] = list(ntt_calls)
         if not b["device_busy_ms"]:
             say(f"profile {name}: device time not measured (no CUDA events in the trace)")
             continue
@@ -1339,6 +1468,8 @@ def main() -> int:
             f"device busy {b['device_busy_ms']:.0f} ms ({100 * b['busy_share']:.0f}%), "
             f"{b['kernel_launches']} kernel launches, gathers {b['gather_ms']:.1f} ms; "
             f"kernels A-G: {ours}; top: {top} ({card})")
+        ntt_share(name, b)
+    ntt_module._transform = transform
 
     # the device time each kernel loses per proof against its bound: its
     # profiled device ms times (1 - bound/kernel_ms) at its main row's shape

@@ -146,3 +146,30 @@ def test_above_size_limit_takes_flat_path(monkeypatch, reference):
     # 2^12 stays on the four-step path
     assert np.array_equal(_np(tntt.ntt(BN254_FR, _t(reference[12][0][0]))), reference[12][1][0])
     assert calls == [13, 13]
+
+
+def test_flat_path_reads_its_chunks_in_place(monkeypatch, reference):
+    """The flat path gathers nothing: kernel A reads the 2^11-point chunks as
+    the columns of the array, in bit-reversed column order (``rev_rows``),
+    then kernel G runs each further stage; the result equals the
+    reference's."""
+    monkeypatch.setenv("ZKDCAP_NO_FOUR_STEP", "1")
+    passes, stages = [], []
+    ntt_pass, butterfly_ = ntt_module.ntt_pass, ntt_module.butterfly
+
+    def pass_spy(x, tw, ptw=None, out=None, rev_rows=False):
+        passes.append((tuple(x.shape), x.stride(), rev_rows, out is None))
+        return ntt_pass(x, tw, ptw, out=out, rev_rows=rev_rows)
+
+    def stage_spy(a, tw, s, tw_stride=1, out=None):
+        stages.append(s)
+        return butterfly_(a, tw, s, tw_stride, out=out)
+
+    monkeypatch.setattr(ntt_module, "ntt_pass", pass_spy)
+    monkeypatch.setattr(ntt_module, "butterfly", stage_spy)
+    xs, fwd, inv = reference[13]
+    assert np.array_equal(_np(tntt.ntt(BN254_FR, _t(xs[0]))), fwd[0])
+    assert np.array_equal(_np(tntt.intt(BN254_FR, _t(xs[1]))), inv[1])
+    # one poly of 2^13: 4 chunks, column c at element stride 4 rows of 16 words
+    assert passes == [((1, 4, 1 << 11, 16), (1 << 17, 16, 64, 1), True, True)] * 2
+    assert stages == [11, 12] * 2

@@ -23,6 +23,7 @@ from zkdcap_tpu_torch.fields import BN254_FR, mont
 from zkdcap_tpu_torch.commit import ParamsKZG
 from zkdcap_tpu_torch.fields import BN254_FQ, mul_kernels
 from zkdcap_tpu_torch.fields.ntt_kernels import ntt_pass, ntt_pass_plain
+from zkdcap_tpu_torch.fields.params import R, int_to_limbs
 from zkdcap_tpu_torch.ntt.ntt import _pass_twiddles
 from zkdcap_tpu_torch.plonk import cs as tcs
 from zkdcap_tpu_torch.plonk.keygen import keygen
@@ -124,6 +125,54 @@ def test_kernel_a_matches_plain(cuda, log_s):
             got = ntt_pass(x, tw, post)
             ref = ntt_pass_plain(x, tw, post)
             assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_s", [1, 3, 4, 8, 9, 10, 11])
+def test_kernel_a_strided_views_match_plain(cuda, log_s):
+    """Kernel A reads columns and writes a transposed view (the four-step
+    layouts), batched with separate batch and row strides, exactly as its
+    plain version; edge values 0, 1, p - 1 and R included."""
+    size, rows, nb = 1 << log_s, 40, 2
+    x = _rand_fr(nb * rows * size, 7 + log_s, cuda).view(nb, size, rows, 16)
+    # limb patterns 0, 1, p - 1 and R mod p (the Montgomery one) fill columns
+    # 0-3; element 0 of every other column is p - 1
+    edges = np.stack([int_to_limbs(v) for v in (0, 1, BN254_FR.p - 1, R % BN254_FR.p)])
+    edges = torch.from_numpy(edges.astype(np.int32))
+    x[:, :, :4] = edges.to(cuda)
+    x[:, 0, 4:] = edges[2].to(cuda)
+    cols = x.transpose(1, 2)
+    ptw = _rand_fr(rows * size, 98, cuda)
+    for inverse in (False, True):
+        tw = _pass_twiddles(log_s, inverse, cuda)
+        for post in (None, ptw):
+            ref = ntt_pass_plain(cols, tw, post)
+            assert torch.equal(ntt_pass(cols, tw, post), ref)
+            out = torch.full((nb, size, rows, 16), -1, dtype=torch.int32, device=cuda)
+            ntt_pass(cols, tw, post, out=out.transpose(1, 2))
+            assert torch.equal(out.transpose(1, 2), ref)
+            assert torch.equal(ntt_pass(cols[1], tw, post), ntt_pass_plain(cols[1], tw, post))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log_rows", [1, 2, 5])
+def test_kernel_a_rev_rows_matches_plain(cuda, log_rows):
+    """The flat NTT's read: rows bit-reversed, columns of the array."""
+    rows, nb = 1 << log_rows, 3
+    x = _rand_fr(nb * rows << 11, 50 + log_rows, cuda).view(nb, 1 << 11, rows, 16).transpose(1, 2)
+    for inverse in (False, True):
+        tw = _pass_twiddles(11, inverse, cuda)
+        assert torch.equal(ntt_pass(x, tw, rev_rows=True), ntt_pass_plain(x, tw, rev_rows=True))
+
+
+@pytest.mark.cuda
+def test_kernel_a_rejects_views_on_the_card(cuda):
+    tw = _pass_twiddles(3, False, cuda)
+    x = _rand_fr(16, 3, cuda).view(2, 8, 16)
+    with pytest.raises(ValueError):
+        ntt_pass(x, tw, out=x)
+    with pytest.raises(ValueError):
+        ntt_pass(torch.zeros(2, 16, 8, dtype=torch.int32, device=cuda).transpose(1, 2), tw)
 
 
 def _points(n, dev):

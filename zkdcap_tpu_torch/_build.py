@@ -47,8 +47,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 SIGNATURES = {
     # a, b, out, n, b_rows, b_inner, field (0 Fr, 1 Fq), stream
     "zk_mont_mul": [_P, _P, _P, _L, _L, _L, _I, _P],
-    # x, out, tw, ptw, total_rows, log_size, ptw_period, stream
-    "zk_ntt_pass": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, out, tw, ptw, batches, rows, log_size, ptw_period, the strides of x
+    # and of out (batch, row, element; int32 words), rows_rev, stream
+    "zk_ntt_pass": [_P, _P, _P, _P, _L, _L, _I, _L] + [_L] * 6 + [_I, _P],
     # rows, masks, ox, oy, oz, steps, lanes, stream
     "zk_madd_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
     # x1, y1, z1, x2, y2, z2, mask, ox, oy, oz, n, fallback_q, stream

@@ -4,14 +4,16 @@ Port of ``zkdcap_tpu/ntt/ntt.py``. A transform of n <= 2^11 points is one
 pass of kernel A (``fields/ntt_kernels.py``); 2^12 <= n <= 2^22 is the
 four-step transform n = N1 * N2 with N1 = 2^floor(log n / 2): pass A runs
 the N2 size-N1 transforms of the columns and multiplies by the inter-pass
-twiddles w^(j*k1) (times n^-1 for the inverse), pass B runs the N1 size-N2
-transforms of the rows, and three transposes in torch move the data between
-them. Larger n, and every n >= 2^12 while ``ZKDCAP_NO_FOUR_STEP`` is set to
-a non-empty value (read at each call, as the JAX package reads it), take the
-flat radix-2 path: one gather puts every 2^11-point chunk of the
-bit-reversed array in natural order, one launch of kernel A runs stages
-0-10 on all chunks, and one launch of kernel G (``fields/butterfly_kernels.py``)
-runs each further stage; the inverse then multiplies by n^-1 (kernel E).
+twiddles w^(j*k1) (times n^-1 for the inverse) into a scratch array, pass B
+runs the N1 size-N2 transforms of the rows; kernel A reads the columns and
+writes the transposed output through strided views, so no copy moves the
+data between them. Larger n, and every n >= 2^12 while
+``ZKDCAP_NO_FOUR_STEP`` is set to a non-empty value (read at each call, as
+the JAX package reads it), take the flat radix-2 path: one launch of kernel
+A runs stages 0-10 on every 2^11-point chunk of the bit-reversed array (each
+chunk a column of the array, read in place), and one launch of kernel G
+(``fields/butterfly_kernels.py``) runs each further stage; the inverse then
+multiplies by n^-1 (kernel E).
 
 Inputs and outputs are ``int32[n, 16]`` Montgomery limbs in natural order.
 Tables are built in torch on the input's device and cached per device.
@@ -27,7 +29,7 @@ import torch
 from ..device import resolve
 from ..fields import mont
 from ..fields.butterfly_kernels import butterfly
-from ..fields.ntt_kernels import MAX_PASS_LOG, _bitrev, ntt_pass
+from ..fields.ntt_kernels import MAX_PASS_LOG, ntt_pass
 from ..fields.params import BN254_FR, NUM_LIMBS, R, FieldParams, int_to_limbs
 
 L = NUM_LIMBS
@@ -85,19 +87,17 @@ def _flat_twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Ten
 
 def _flat(batch: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
     """The flat radix-2 transform of every row of (B, n, 16), n >= 2^12:
-    one gather, one pass of kernel A over the 2^11-point chunks, one launch
-    of kernel G per stage from 11 up, and n^-1 for the inverse."""
+    one pass of kernel A over the 2^11-point chunks, one launch of kernel G
+    per stage from 11 up, and n^-1 for the inverse."""
     nb, n, _ = batch.shape
     dev = batch.device
     log_c = log_n - MAX_PASS_LOG
     # after a global bit reversal, chunk c holds the bit reversal of
-    # x_c[u] = a[u * 2^log_c + bitrev(c)]; kernel A reverses by its load
-    # address, so it is given x_c in natural order
-    u = torch.arange(1 << MAX_PASS_LOG, device=dev)
-    idx = ((u << log_c)[None, :] + _bitrev(log_c).to(dev)[:, None]).reshape(-1)
-    x = batch.index_select(1, idx).view(nb << log_c, 1 << MAX_PASS_LOG, L)
-    a = ntt_pass(x, _pass_twiddles(MAX_PASS_LOG, inverse, dev)).view(nb, n, L)
-    del x
+    # x_c[u] = a[u * 2^log_c + bitrev(c)], column bitrev(c) of the
+    # (2^11, 2^log_c) view; kernel A reverses by its load address, so it reads
+    # that column in place in natural order
+    cols = batch.unflatten(1, (1 << MAX_PASS_LOG, 1 << log_c)).transpose(1, 2)
+    a = ntt_pass(cols, _pass_twiddles(MAX_PASS_LOG, inverse, dev), rev_rows=True).view(nb, n, L)
     tw = _flat_twiddles(log_n, inverse, dev)
     for s in range(MAX_PASS_LOG, log_n):
         butterfly(a, tw, s, n >> (s + 1), out=a)
@@ -140,21 +140,22 @@ def _transform(params: FieldParams, batch: torch.Tensor, inverse: bool) -> torch
                                      and os.environ.get("ZKDCAP_NO_FOUR_STEP")):
         return _flat(batch, log_n, inverse)
     dev = batch.device
-    batch = batch.contiguous()
     if log_n <= MAX_PASS_LOG:
         ptw = _n_inv(log_n, dev) if inverse else None
         return ntt_pass(batch, _pass_twiddles(log_n, inverse, dev), ptw)
     log_n1, log_n2 = _four_step_split(log_n)
     N1, N2 = 1 << log_n1, 1 << log_n2
-    # pass A over i for each column j: a[i*N2 + j] sits at row j, column i
-    cols = batch.view(nb, N1, N2, L).transpose(1, 2).reshape(nb * N2, N1, L)
-    cols = ntt_pass(cols, _pass_twiddles(log_n1, inverse, dev),
-                    _four_step_twiddles(log_n, inverse, dev))
-    # pass B over j for each row k1
-    rows = cols.view(nb, N2, N1, L).transpose(1, 2).reshape(nb * N1, N2, L)
-    rows = ntt_pass(rows, _pass_twiddles(log_n2, inverse, dev))
-    # natural order: out[k1 + N1*k2] = D[k1, k2]
-    return rows.view(nb, N1, N2, L).transpose(1, 2).reshape(nb, n, L)
+    # pass A over i for each column j: a[i*N2 + j] is column j, element i of
+    # the (N1, N2) view, read in place; it writes (nb, N2, N1) contiguous
+    cols = torch.empty(nb, N2, N1, L, dtype=batch.dtype, device=dev)
+    ntt_pass(batch.unflatten(1, (N1, N2)).transpose(1, 2), _pass_twiddles(log_n1, inverse, dev),
+             _four_step_twiddles(log_n, inverse, dev), out=cols)
+    # pass B over j for each row k1 (a column of cols), written in natural
+    # order: out[k1 + N1*k2] = D[k1, k2]
+    out = torch.empty(nb, n, L, dtype=batch.dtype, device=dev)
+    ntt_pass(cols.transpose(1, 2), _pass_twiddles(log_n2, inverse, dev),
+             out=out.view(nb, N2, N1, L).transpose(1, 2))
+    return out
 
 
 def ntt(params: FieldParams, a: torch.Tensor) -> torch.Tensor:

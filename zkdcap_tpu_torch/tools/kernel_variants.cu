@@ -12,8 +12,13 @@
 //   between.
 // - E: the elementwise product with fe_mul and with fe_mul_cc (whether
 //   the other kernels should take the carry-chain product).
+// - A: the package's entry point and, with a forced tile or not, 2, 4 and 8
+//   elements a thread, each product below, two launch bounds; the first design
+//   (one butterfly a thread, a barrier a stage, contiguous rows only); and
+//   the rate of each product alone.
 #include "../csrc/ec_add_select.cu"
 #include "../csrc/madd_scan.cu"
+#include "../csrc/ntt_pass.cu"
 
 namespace {
 
@@ -185,7 +190,187 @@ mont_mul_variant_kernel(const int32_t* __restrict__ a, const int32_t* __restrict
   store_row16(out + g * 16, kCarryChain ? fe_mul_cc<Fr>(x, y) : fe_mul<Fr>(x, y));
 }
 
+// Products kernel A's variants take beside csrc/ntt_pass.cu's MulCc and
+// MulCalled: fe_mul inlined, fe_mul_cc called, and two rewrites of fe_mul,
+// one adding the row's carry to the partial sum before the wide
+// multiply-add (MulA), one doing that in PTX (mad.wide.u32 with a 64-bit
+// addend, MulP).
+struct MulInline {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul<Fr>(a, b); }
+};
+__device__ __noinline__ Fe fe_mul_cc_call(Fe a, Fe b) { return fe_mul_cc<Fr>(a, b); }
+struct MulCcCalled {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) {
+    return fe_mul_cc_call(a, b);
+  }
+};
+
+__device__ __forceinline__ Fe fe_mul_a(const Fe& a, const Fe& b) {
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint32_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      const uint64_t s = (uint64_t)a.v[j] * b.v[i] + ((uint64_t)t[j] + c);
+      t[j] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    const uint32_t m = t[0] * Fr::INV;
+    s = (uint64_t)m * Fr::mod(0) + t[0];
+    c = (uint32_t)(s >> 32);
+#pragma unroll
+    for (int j = 1; j < 8; j++) {
+      s = (uint64_t)m * Fr::mod(j) + ((uint64_t)t[j] + c);
+      t[j - 1] = (uint32_t)s;
+      c = (uint32_t)(s >> 32);
+    }
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) r.v[i] = t[i];
+  return reduce_once<Fr>(r, t[8]);
+}
+struct MulA {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul_a(a, b); }
+};
+
+// lo + 2^32 carry = a b + t + carry
+__device__ __forceinline__ void mac_wide(uint32_t& lo, uint32_t& carry, uint32_t a, uint32_t b,
+                                         uint32_t t) {
+  asm("{\n\t.reg .u32 l, h;\n\t.reg .u64 acc, r;\n\t"
+      "add.cc.u32 l, %2, %3;\n\t"
+      "addc.u32 h, 0, 0;\n\t"
+      "mov.b64 acc, {l, h};\n\t"
+      "mad.wide.u32 r, %4, %5, acc;\n\t"
+      "mov.b64 {%0, %1}, r;\n\t}"
+      : "=r"(lo), "=r"(carry)
+      : "r"(t), "r"(carry), "r"(a), "r"(b));
+}
+
+__device__ __forceinline__ Fe fe_mul_p(const Fe& a, const Fe& b) {
+  uint32_t t[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint32_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) mac_wide(t[j], c, a.v[j], b.v[i], t[j]);
+    uint64_t s = (uint64_t)t[8] + c;
+    t[8] = (uint32_t)s;
+    t[9] = (uint32_t)(s >> 32);
+    const uint32_t m = t[0] * Fr::INV;
+    uint32_t lo;
+    c = 0;
+    mac_wide(lo, c, m, Fr::mod(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < 8; j++) mac_wide(t[j - 1], c, m, Fr::mod(j), t[j]);
+    s = (uint64_t)t[8] + c;
+    t[7] = (uint32_t)s;
+    t[8] = t[9] + (uint32_t)(s >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; i++) r.v[i] = t[i];
+  return reduce_once<Fr>(r, t[8]);
+}
+struct MulP {
+  static __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b) { return fe_mul_p(a, b); }
+};
+
+// A's first design: a block of 256 threads holds whole rows (at least 512
+// elements) in shared memory as 32-byte elements; every stage is one
+// butterfly a thread, its twiddle read in the 16-bit layout, then a barrier.
+__global__ void __launch_bounds__(256)
+ntt_pass_pr1_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
+                    const int32_t* __restrict__ tw, const int32_t* __restrict__ ptw,
+                    int rows, int log_size, long ptw_period, int per_block) {
+  extern __shared__ Fe sh[];
+  const int size = 1 << log_size;
+  const int half = size >> 1;
+  const long first = (long)blockIdx.x * per_block;
+  const int nt = rows - first < per_block ? (int)(rows - first) : per_block;
+  const int elems = nt << log_size;
+  const long base = first << log_size;
+  for (int e = threadIdx.x; e < elems; e += 256) {
+    const int t = e >> log_size;
+    const int i = e & (size - 1);
+    const int r = (int)(__brev((unsigned)i) >> (32 - log_size));
+    sh[(t << log_size) | r] = load_row16(x + (base + e) * 16);
+  }
+  __syncthreads();
+  for (int s = 0; s < log_size; s++) {
+    const int m = 1 << s;
+    const int tw_step = half >> s;
+    for (int q = threadIdx.x; q < nt * half; q += 256) {
+      const int t = q >> (log_size - 1);
+      const int k = q & (half - 1);
+      const int j = k & (m - 1);
+      const int lo = (t << log_size) + ((k >> s) << (s + 1)) + j;
+      const int hi = lo + m;
+      const Fe v = fe_mul<Fr>(sh[hi], load_row16(tw + (long)(j * tw_step) * 16));
+      const Fe u = sh[lo];
+      sh[lo] = fe_add<Fr>(u, v);
+      sh[hi] = fe_sub<Fr>(u, v);
+    }
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < elems; e += 256) {
+    const long g = base + e;
+    Fe v = sh[e];
+    if (ptw != nullptr) v = fe_mul<Fr>(v, load_row16(ptw + (g % ptw_period) * 16));
+    store_row16(out + g * 16, v);
+  }
+}
+
+// The card's rate of one product: every thread runs four independent chains
+// of `iters` products by one operand (Mul::mul), no memory in the loop.
+template <class Mul>
+__global__ void __launch_bounds__(256)
+product_rate_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
+                    int32_t* __restrict__ out, int iters) {
+  const long g = (long)blockIdx.x * 256 + threadIdx.x;
+  Fe v[4];
+#pragma unroll
+  for (int c = 0; c < 4; c++) v[c] = load_row16(x + (4 * g + c) * 16);
+  const Fe b = load_row16(w + g * 16);
+#pragma unroll 1
+  for (int k = 0; k < iters; k++) {
+#pragma unroll
+    for (int c = 0; c < 4; c++) v[c] = Mul::mul(v[c], b);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; c++) store_row16(out + (4 * g + c) * 16, v[c]);
+}
+
 }  // namespace
+
+// x, out: (4 * threads, 16); w: (threads, 16); threads a multiple of 256;
+// mul: 0 fe_mul, 1 fe_mul_cc, 2 fe_mul called, 3 fe_mul_a, 4 fe_mul_p.
+extern "C" int zkv_product_rate(int mul, const void* x, const void* w, void* out, long threads,
+                                int iters, void* stream) {
+  const unsigned grid = (unsigned)(threads / 256);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int32_t *a = (const int32_t*)x, *b = (const int32_t*)w;
+  int32_t* o = (int32_t*)out;
+  switch (mul) {
+    case 1: product_rate_kernel<MulCc><<<grid, 256, 0, s>>>(a, b, o, iters); break;
+    case 2: product_rate_kernel<MulCalled><<<grid, 256, 0, s>>>(a, b, o, iters); break;
+    case 3: product_rate_kernel<MulA><<<grid, 256, 0, s>>>(a, b, o, iters); break;
+    case 4: product_rate_kernel<MulP><<<grid, 256, 0, s>>>(a, b, o, iters); break;
+    default: product_rate_kernel<MulInline><<<grid, 256, 0, s>>>(a, b, o, iters); break;
+  }
+  return (int)cudaGetLastError();
+}
 
 // design: 0 csrc/ec_add_select.cu's entry point, 1 the grouped design, 2-3 the
 // large design at 256 lanes a block of 128 threads and 128 of 128.
@@ -250,5 +435,48 @@ extern "C" int zkv_mont_mul(int design, const void* a, const void* b, void* out,
   auto kernel = design ? mont_mul_variant_kernel<true> : mont_mul_variant_kernel<false>;
   kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>((const int32_t*)a, (const int32_t*)b,
                                                             (int32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// design: 0 csrc/ntt_pass.cu's kernel as its entry point launches it, then
+// (elements a thread, product, __launch_bounds__): 1 (4, fe_mul, 256 x 2),
+// 2 (4, fe_mul_cc, 256 x 2), 3 (4, fe_mul called, 256 x 2), 4 (4, fe_mul_cc
+// called, 256 x 2), 5 (4, fe_mul, 256 x 3), 6 (4, fe_mul_a, 256 x 2), 7 (4,
+// fe_mul_p, 256 x 2), 8 (8, fe_mul, 128 x 3), 9 (8, fe_mul called, 128 x 3),
+// 10 (2, fe_mul, 256 x 3), all with tile_log (0: the pick by waves); 11 the
+// first design (contiguous x and out, tile_log ignored). The other arguments
+// are zk_ntt_pass's.
+extern "C" int zkv_ntt_pass(int design, int tile_log, const void* x, void* out, const void* tw,
+                            const void* ptw, long batches, long rows, int log_size,
+                            long ptw_period, long xb, long xr, long xe, long ob, long orow,
+                            long oe, void* stream) {
+  if (!ntt_args_ok(batches, rows, log_size, ptw_period, 0)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const NttArgs a =
+      ntt_args(x, out, tw, ptw, batches, rows, log_size, ptw_period, xb, xr, xe, ob, orow, oe, 0);
+  switch (design) {
+    case 0: return ntt_entry(a, tile_log, s);
+    case 1: return ntt_launch<2, MulInline, 256, 2>(a, tile_log, s);
+    case 2: return ntt_launch<2, MulCc, 256, 2>(a, tile_log, s);
+    case 3: return ntt_launch<2, MulCalled, 256, 2>(a, tile_log, s);
+    case 4: return ntt_launch<2, MulCcCalled, 256, 2>(a, tile_log, s);
+    case 5: return ntt_launch<2, MulInline, 256, 3>(a, tile_log, s);
+    case 6: return ntt_launch<2, MulA, 256, 2>(a, tile_log, s);
+    case 7: return ntt_launch<2, MulP, 256, 2>(a, tile_log, s);
+    case 8: return ntt_launch<3, MulInline, 128, 3>(a, tile_log, s);
+    case 9: return ntt_launch<3, MulCalled, 128, 3>(a, tile_log, s);
+    case 10: return ntt_launch<1, MulInline, 256, 3>(a, tile_log, s);
+    default: break;
+  }
+  const long total = batches * rows;
+  const int per_block = log_size >= 9 ? 1 : (1 << (9 - log_size));
+  cudaError_t err = cudaFuncSetAttribute(ntt_pass_pr1_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(sizeof(Fe) << 11));
+  if (err != cudaSuccess) return (int)err;
+  ntt_pass_pr1_kernel<<<(unsigned)((total + per_block - 1) / per_block), 256,
+                        (size_t)(per_block << log_size) * sizeof(Fe), s>>>(
+      (const int32_t*)x, (int32_t*)out, (const int32_t*)tw, (const int32_t*)ptw, (int)total,
+      log_size, ptw_period, per_block);
   return (int)cudaGetLastError();
 }
