@@ -40,7 +40,7 @@ fails, printing no result, without them or outside a checkout of the repo.
    rise during this phase;
 4. drives the prover: the small circuits of the CPU tests must prove the
    bytes of ``zkdcap_tpu_torch/testdata/reference_proofs.json`` (the JAX
-   package's proofs), then a circuit with the k = 18 P-256 ECDSA circuit's
+   package's proofs, SHPLONK and GWC), then a circuit with the k = 18 P-256 ECDSA circuit's
    layout (``assets/pinning_k18.json``) goes through keygen and three seeded
    proofs, which must be identical, pass the port's verifier and fail it
    with one byte flipped; every kernel but F must launch here;
@@ -48,7 +48,7 @@ fails, printing no result, without them or outside a checkout of the repo.
    ``ECDSAProver(k=18)`` on the real circuit, in a fresh params dir: keygen
    (its ``vk_k18.json`` must equal ``assets/vk_k18.json``), a reload from the
    saved artifacts, and proofs of the reference test vector under one
-   blinding seed, one untimed and then two each with the default sorts,
+   blinding seed, one untimed and then one each with the default sorts,
    ``ZKDCAP_MSM_ROWSORT=1`` and ``ZKDCAP_MSM_BITONIC=1``: identical, equal
    to the JAX package's proof in
    ``zkdcap_tpu_torch/testdata/p256_proof.json``, accepted by ``verify``
@@ -58,12 +58,22 @@ fails, printing no result, without them or outside a checkout of the repo.
    the demo input, in a fresh params dir: keygen (SRS, trace + compile,
    device keygen and the pk's save timed apart; its vk must hold the JAX
    package's commitments of ``zkdcap_tpu_torch/testdata/dcap_proof.json``),
-   one untimed proof, then two proofs with the default NTT and two under
-   ``ZKDCAP_NO_FOUR_STEP=1`` (order A B B A), all with the fixture's seed
-   and equal to its bytes, with the native evaluator run for each and
-   kernel G launched in each switched proof; ``verify`` accepts (and a
-   flipped byte fails); kernels A-E and G must launch;
-7. profiles the engine's phases (the 2^20 MSM also under each sort switch),
+   one untimed proof, then one proof with the default NTT and one under
+   ``ZKDCAP_NO_FOUR_STEP=1``, all with the fixture's seed and equal to its
+   bytes, with the native evaluator run for each and kernel G launched in
+   the switched proof; ``verify`` accepts (and a flipped byte fails);
+   kernels A-E and G must launch;
+7. builds ``DcapProver(multiopen="gwc")`` on step 6's params dir and the
+   artifacts step 6 loaded, and proves the demo input under the fixture's
+   seed: the GWC verifier accepts it, the SHPLONK one rejects it, it is
+   longer than the SHPLONK proof and equal to ``testdata/dcap_proof.json``'s
+   ``card_gwc`` (once the fixture holds one);
+8. proves the DCAP circuit with ``create_proof(checkpoint=True)`` in a
+   fresh params dir (the same loaded artifacts), preempted after r1, r3 and
+   r6 and resumed each time: every resumed proof equals
+   ``testdata/dcap_proof.json``, no ``ck_*.npz`` is left, and each round's
+   save is timed and measured;
+9. profiles the engine's phases (the 2^20 MSM also under each sort switch),
    one k = 18 P-256 proof under each of the three sorts and one DCAP proof
    under each NTT setting with torch.profiler, kernel C's launches in the
    default DCAP proof counted and timed by lane count, every NTT in a
@@ -71,15 +81,27 @@ fails, printing no result, without them or outside a checkout of the repo.
    gathers around kernel A) and the NTT calls of the default proofs listed
    in the report (``ntt_calls``, which ``tools/kernel_ab.py`` replays); then
    ranks the kernels by the device time each loses per proof against its
-   bound;
-8. prints the kernel table as one JSON line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+   bound; then frees the P-256 and DCAP provers;
+10-11. drives the cert-chain and quote prover services,
+   ``CertChainProver(k=17, structure=make_intel_demo_chain())`` and
+   ``QuoteProver(k=17)`` on ``make_demo_quote()``, each in a fresh params
+   dir with a copy of step 6's SRS: keygen (phases timed; its vk must hold
+   the JAX keygen's commitments of ``testdata/{cert_chain,quote}_vk.json``),
+   the tape, a warm-up and a timed proof under one seed (identical, equal to
+   the fixture's card proof once it holds one, kernels A-E launched in
+   each), ``verify`` (and a flipped byte), one profiled proof, the proof's
+   hex in the report; each prover is freed after its step;
+12. prints the kernel table as one JSON line (launches of steps 5-8 and
+   10-11, and per cert-chain and quote proof), the card's name and power
+   limit, the seconds at which each step started, and last
+   ``{"ok": true, "device": {...}}``.
 
 Everything it prints also lands in ``build/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import os
@@ -91,6 +113,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 
 # Peak rates of one H100 SXM at its 700 W limit: HBM bandwidth, and 32-bit
 # integer multiply-adds at half the 67 TFLOP/s (33.5 T FMA/s) float32 rate
@@ -135,7 +158,7 @@ BUTTERFLY_SHAPES = {"butterfly/2^17": (22, 17), "butterfly": (1, 19), "butterfly
 # the flat path's sizes in the engine step, and Domain(21, 23)
 FLAT_LOGS, FLAT_DOMAIN = (23, 24), (21, 23)
 NO_FOUR_STEP = "ZKDCAP_NO_FOUR_STEP"
-# the record_function range around every NTT in step 7's profiles
+# the record_function range around every NTT in step 9's profiles
 NTT_RANGE = "ntt _transform"
 # the blinding seed of the k = 18 layout proofs
 PROOF_SEED = b"chip-smoke-k18"
@@ -338,19 +361,25 @@ def kernel_ms(fn, names, reps: int) -> float:
     """Device ms per call of fn of the kernels whose CUDA function names
     contain one of `names`, over `reps` calls after one warm-up
     (torch.profiler): the kernel's own time, without the host's launch gaps
-    and the wrapper's other work. Raises where the trace holds none."""
+    and the wrapper's other work. Every call launches at least one such
+    kernel, so a trace with fewer launches than calls lost records: it is
+    taken again, at most three times in all. Raises where the trace holds
+    none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    ms = kernel_events(prof, names)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = kernel_events(prof, names)
+        if len(ms) >= reps:
+            break
     if not ms:
-        raise RuntimeError(f"torch.profiler traced no launch of {names}")
+        raise RuntimeError(f"torch.profiler traced no launch of {names} in three tries")
     return sum(ms) / reps
 
 
@@ -512,13 +541,15 @@ def device_breakdown(fn, top: int = 10, ranges=(), sequence=()) -> dict:
     kernel (self time, summed over launches), the device's busy share and
     the device time of the kernels launched inside each named
     ``record_function`` range of `ranges`; with `sequence`, the device ms
-    of each launch of the kernels so named, in order."""
+    of each launch of the kernels so named, in order. The host's operations
+    are traced only where `ranges` needs them, which keeps the trace small."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if ranges else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -656,15 +687,17 @@ def prove_phase(say, card: str, dev, srs) -> dict:
                                        device=dev))
         pk = keygen(params, circ.cs, circ.fixed_values, device=dev)
         advice = advice_of(circ)
-        for kind, want in ref["proofs"].items():
-            t, proof = wall_s(lambda: tprover.create_proof(
-                params, pk, advice, circ.instances, TranscriptWriter(kind),
-                blinding_seed=ref["seed"].encode(), device=dev))
-            if proof.hex() != want:
-                raise AssertionError(f"{name}/{kind}: the proof differs from the JAX package's")
-            out["small"][f"{name}/{kind}"] = t
+        for multiopen, key in (("shplonk", "proofs"), ("gwc", "gwc_proofs")):
+            for kind, want in ref[key].items():
+                t, proof = wall_s(lambda: tprover.create_proof(
+                    params, pk, advice, circ.instances, TranscriptWriter(kind),
+                    blinding_seed=ref["seed"].encode(), multiopen=multiopen, device=dev))
+                if proof.hex() != want:
+                    raise AssertionError(f"{name}/{kind}/{multiopen}: the proof differs from "
+                                         "the JAX package's")
+                out["small"][f"{name}/{kind}" + ("/gwc" if multiopen == "gwc" else "")] = t
     say(f"prover: {len(out['small'])} small proofs (k = 4 toy under blake2b, poseidon, "
-        f"keccak; k = {FLEX_SMALL['k']} flex) equal the JAX package's bytes in "
+        f"keccak; k = {FLEX_SMALL['k']} flex; SHPLONK and GWC) equal the JAX package's bytes in "
         "testdata/reference_proofs.json; seconds "
         + ", ".join(f"{key} {t:.2f}" for key, t in out["small"].items()))
 
@@ -768,11 +801,10 @@ def service_phase(say, card: str, dev, fixture: dict) -> dict:
         return prover.create_proof(inp, timing=False, blinding_seed=seed)
 
     # one untimed proof first (it builds the witness fill's index cache),
-    # then each sort twice, in the order A B C C B A
+    # then one proof under each sort
     out["warmup_s"], warm = wall_s(prove_once)
     runs, proofs = {}, [warm]
-    variants = (("default", None), *SWITCHES.items())
-    for label, var in (*variants, *reversed(variants)):
+    for label, var in (("default", None), *SWITCHES.items()):
         if var:
             os.environ[var] = "1"
         try:
@@ -795,8 +827,7 @@ def service_phase(say, card: str, dev, fixture: dict) -> dict:
             + f"; launches {run['launches']} ({card})")
     for label, rs in runs.items():
         out[f"prove_s_mean/{label}"] = statistics.fmean(r["s"] for r in rs)
-    say(f"service: after a warm-up proof of {out['warmup_s']:.3f} s, mean of two proofs per "
-        "sort: " + ", ".join(f"{label} {out[f'prove_s_mean/{label}']:.3f} s" for label in runs)
+    say(f"service: after a warm-up proof of {out['warmup_s']:.3f} s, one proof per sort: " + ", ".join(f"{label} {out[f'prove_s_mean/{label}']:.3f} s" for label in runs)
         + f" ({card})")
     for label, var in SWITCHES.items():
         if min(r["launches"]["bitonic_sort"] for r in runs[label]) <= 0:
@@ -870,12 +901,11 @@ def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
     def prove_once() -> bytes:
         return prover.create_proof(inp, timing=False, blinding_seed=seed)
 
-    # one untimed proof first, then the default NTT and the flat path twice
-    # each, in the order A B B A, all under the fixture's seed
+    # one untimed proof first, then one with the default NTT and one on the
+    # flat path, all under the fixture's seed
     out["warmup_s"], warm = wall_s(prove_once)
     runs, proofs = {}, [warm]
-    for label, var in (("default", None), ("flat", NO_FOUR_STEP), ("flat", NO_FOUR_STEP),
-                       ("default", None)):
+    for label, var in (("default", None), ("flat", NO_FOUR_STEP)):
         if var:
             os.environ[var] = "1"
         try:
@@ -898,7 +928,7 @@ def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
             + f"; launches {run['launches']} ({card})")
     for label, rs in runs.items():
         out[f"prove_s_mean/{label}"] = statistics.fmean(r["s"] for r in rs)
-    say(f"dcap: after a warm-up proof of {out['warmup_s']:.3f} s, mean of two proofs: "
+    say(f"dcap: after a warm-up proof of {out['warmup_s']:.3f} s, one proof each: "
         + ", ".join(f"{label} {out[f'prove_s_mean/{label}']:.3f} s" for label in runs)
         + f" ({card})")
     if min(r["launches"]["butterfly"] for r in runs["flat"]) <= 0:
@@ -922,6 +952,266 @@ def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
         f"({out['verify_s']:.2f} s) and rejects byte {len(bad) // 2} flipped; peak device "
         f"memory {out['peak_gb']:.1f} GB; launches over step 6 {out['launches']} ({card})")
     out["prove_once"] = prove_once
+    out["prover"] = prover
+    return out
+
+
+# The prover services of the cert-chain and quote circuits, each on the
+# structure input its fixture was made for, and the blinding seed of the
+# card's proofs that the fixtures keep (testdata/{name}_vk.json, "card")
+CIRCUIT_SERVICES = {"cert_chain": ("CertChainProver", "make_intel_demo_chain",
+                                   b"cert-chain-intel-demo"),
+                    "quote": ("QuoteProver", "make_demo_quote", b"quote-demo")}
+# kernels every proof of the new services must launch
+PROOF_KERNELS = ("ntt_pass", "madd_scan", "ec_add_select", "window_join", "mont_mul")
+# rounds after which the checkpoint step preempts a DCAP proof
+CHECKPOINT_ROUNDS = ("r1", "r3", "r6")
+
+
+def launched(before: dict) -> dict:
+    from zkdcap_tpu_torch import _build
+
+    return {k: _build.launches[k] - before[k] for k in before}
+
+
+def require_kernels(what: str, launches: dict) -> None:
+    missing = [k for k in PROOF_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} did not launch")
+
+
+def circuit_service_phase(say, card: str, dev, name: str, fixture: dict, srs_dir: Path) -> dict:
+    """Steps 10-11: the cert-chain or quote prover service on the structure
+    input of its fixture, in a fresh params dir that holds a copy of the
+    DCAP step's k = 17 SRS, with the launch counts set to 0 first: keygen
+    (its vk must be the JAX keygen's of the fixture), the tape, a warm-up
+    proof and a timed one under one seed (identical; equal to the fixture's
+    card proof once it holds one), verify (and a flipped byte), one profiled
+    proof. The prover is freed before the step returns."""
+    import torch
+
+    from zkdcap_tpu_torch import _build, runtime
+    from zkdcap_tpu_torch.plonk import prover as tprover
+    from zkdcap_tpu_torch.witness import native
+
+    cls_name, make, seed = CIRCUIT_SERVICES[name]
+    structure = getattr(importlib.import_module(f"zkdcap_tpu_torch.circuits.{name}"), make)()
+    k = fixture["k"]
+    params_dir = ROOT / "build" / f"smoke_params_{name}"
+    shutil.rmtree(params_dir, ignore_errors=True)
+    params_dir.mkdir(parents=True)
+    srs_file = f"kzg_bn254_{k}.srs.npz"
+    shutil.copy(srs_dir / srs_file, params_dir / srs_file)
+    out = {"structure": make, "seed": seed.decode()}
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+
+    prover = getattr(runtime, cls_name)(params_dir=str(params_dir), k=k, structure=structure,
+                                        device=dev)
+    if prover.lookup_bits != fixture["lookup_bits"]:
+        raise AssertionError(f"{name}: lookup bits {prover.lookup_bits}, fixture's "
+                             f"{fixture['lookup_bits']}")
+    before = dict(_build.launches)
+    out["keygen_s"], _ = wall_s(prover.keygen)
+    out["keygen_phases_s"] = dict(prover.keygen_phases)
+    out["keygen_launches"] = launched(before)
+    out["pk_bytes"] = Path(prover.pk_path).stat().st_size
+    if json.loads(Path(prover.vk_path).read_text()) != fixture["vk"]:
+        raise AssertionError(f"keygen's {Path(prover.vk_path).name} differs from the JAX "
+                             f"keygen's vk in testdata/{name}_vk.json")
+    pin = json.loads(Path(prover.pinning_path).read_text())
+    cs = prover._compiled.cs
+    out["layout"] = {"advice": cs.num_advice, "fixed": cs.num_fixed,
+                     "permuted": len(cs.permutation_columns), "lookups": len(cs.lookups),
+                     "extended_k": cs.extended_k(k), "cells": pin["num_cells"]}
+    say(f"{name} keygen k={k} ({make}()): {out['keygen_s']:.1f} s: "
+        + ", ".join(f"{ph} {v:.1f} s" for ph, v in out["keygen_phases_s"].items())
+        + f" ({out['pk_bytes'] / 1e9:.2f} GB); layout {out['layout']}; its vk holds the JAX "
+        f"keygen's commitments (testdata/{name}_vk.json) ({card})")
+    out["tape_s"], _ = wall_s(prover._get_tape)
+    say(f"{name} witness tape recorded and saved in {out['tape_s']:.1f} s ({card})")
+
+    def prove_once() -> bytes:
+        return prover.create_proof(structure, timing=False, blinding_seed=seed)
+
+    runs, proofs = [], []
+    for label in ("warm-up", "timed"):
+        before, replays = dict(_build.launches), native.replays
+        t, proof = wall_s(prove_once)
+        proofs.append(proof)
+        if native.replays != replays + 1:
+            raise AssertionError(f"{name}: the native witness evaluator did not run")
+        run = {"label": label, "s": t, "runtime_s": dict(prover.last_phases),
+               "rounds_s": dict(tprover.last_phases), "launches": launched(before)}
+        require_kernels(f"{name} proof ({label})", run["launches"])
+        runs.append(run)
+        say(f"{name} proof ({label}): {t:.3f} s; runtime phases "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in prover.last_phases.items())
+            + "; create_proof rounds "
+            + ", ".join(f"{ph} {v:.3f}" for ph, v in tprover.last_phases.items())
+            + f"; launches {run['launches']} ({card})")
+    if len(set(proofs)) != 1:
+        raise AssertionError(f"{name}: two proofs under one seed differ")
+    proof = proofs[0]
+    out.update(runs=runs, prove_s=runs[-1]["s"], proof_bytes=len(proof), proof=proof.hex())
+    held = "card" in fixture
+    if held and (fixture["card"]["seed"] != seed.decode() or fixture["card"]["proof"] != proof.hex()):
+        raise AssertionError(f"{name}: the proof differs from the card proof in "
+                             f"testdata/{name}_vk.json")
+    out["verify_s"], ok = wall_s(lambda: prover.verify(proof))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    if not ok or prover.verify(bytes(bad)):
+        raise AssertionError(f"{name}: verify of the proof or of the flipped proof")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    say(f"{name}: 2 proofs identical ({len(proof)} bytes), "
+        + ("equal to the card proof in" if held else "no card proof yet in")
+        + f" testdata/{name}_vk.json; verify accepts it ({out['verify_s']:.2f} s) and rejects "
+        f"byte {len(bad) // 2} flipped; peak device memory {out['peak_gb']:.1f} GB ({card})")
+    before = dict(_build.launches)
+    b = out["profile"] = device_breakdown(prove_once, top=10)
+    out["profile"]["launches"] = launched(before)
+    if b["device_busy_ms"]:
+        ours = "; ".join(f"{kn} x{r['launches']} {r['ms']:.1f} ms" for kn, r in b["ours"].items())
+        top = "; ".join(f"{t['kernel'][:48]} x{t['launches']} {t['ms']:.1f} ms"
+                        for t in b["top"][:6])
+        say(f"profile {cls_name}.create_proof k={k}: {b['wall_ms_profiled']:.0f} ms wall under "
+            f"the profiler, device busy {b['device_busy_ms']:.0f} ms "
+            f"({100 * b['busy_share']:.0f}%), {b['kernel_launches']} kernel launches; kernels "
+            f"A-G: {ours}; top: {top} ({card})")
+    else:
+        say(f"profile {cls_name}: device time not measured (no CUDA events in the trace)")
+    out["launches"] = dict(_build.launches)
+    del prover
+    torch.cuda.empty_cache()
+    return out
+
+
+def adopt(prover, loaded) -> None:
+    """Give `prover` the artifacts `loaded` already holds (pk, compile,
+    structure trace, tape, SRS): the same circuit, not read again."""
+    for attr in ("_pk", "_builder", "_compiled", "_structure_ctx", "_tape", "_params"):
+        setattr(prover, attr, getattr(loaded, attr))
+
+
+def gwc_phase(say, card: str, dev, fixture: dict, shplonk_proof: bytes, loaded) -> dict:
+    """Step 7: ``DcapProver(multiopen="gwc")`` on the DCAP step's params
+    dir and the artifacts that `loaded` (step 6's prover) holds, with the
+    launch counts set to 0 first: one proof of the demo input under the
+    fixture's seed, accepted under GWC and rejected under SHPLONK, longer
+    than the SHPLONK proof (and equal to the fixture's card GWC proof once
+    it holds one)."""
+    import torch
+
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.circuits.dcap import load_demo_input
+    from zkdcap_tpu_torch.runtime import DcapProver
+
+    params_dir = ROOT / "build" / "smoke_params_dcap"
+    out = {}
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    prover = DcapProver(params_dir=str(params_dir), k=fixture["k"], multiopen="gwc", device=dev)
+    adopt(prover, loaded)
+    seed = fixture["seed"].encode()
+    before = dict(_build.launches)
+    out["prove_s"], proof = wall_s(lambda: prover.create_proof(
+        load_demo_input(), timing=False, blinding_seed=seed))
+    out["rounds_s"] = dict(prover.last_phases)
+    out["proof_launches"] = launched(before)
+    require_kernels("the GWC DCAP proof", out["proof_launches"])
+    out["verify_s"], ok = wall_s(lambda: prover.verify(proof))
+    if not ok or loaded.verify(proof) or prover.verify(shplonk_proof):
+        raise AssertionError("the GWC DCAP proof must verify under GWC only")
+    if len(proof) <= len(shplonk_proof):
+        raise AssertionError("the GWC DCAP proof is not longer than the SHPLONK one")
+    held = "card_gwc" in fixture
+    if held and (fixture["card_gwc"]["seed"] != fixture["seed"]
+                 or fixture["card_gwc"]["proof"] != proof.hex()):
+        raise AssertionError("the GWC DCAP proof differs from testdata/dcap_proof.json's card_gwc")
+    out.update(proof_bytes=len(proof), proof=proof.hex(), seed=fixture["seed"],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=dict(_build.launches))
+    say(f"gwc: DcapProver(multiopen='gwc') on step 6's artifacts: proof "
+        f"{out['prove_s']:.3f} s ({len(proof)} bytes against SHPLONK's {len(shplonk_proof)}), "
+        + ("equal to" if held else "not yet in")
+        + f" testdata/dcap_proof.json's card_gwc; verify accepts it under GWC "
+        f"({out['verify_s']:.2f} s) and the SHPLONK verifier rejects it (and GWC the SHPLONK "
+        f"proof); launches {out['proof_launches']} ({card})")
+    return out
+
+
+def checkpoint_phase(say, card: str, dev, fixture: dict, loaded) -> dict:
+    """Step 8: the DCAP circuit under the fixture's seed with
+    ``create_proof(checkpoint=True)`` in a fresh params dir (the prover
+    takes the artifacts that `loaded`, step 6's prover, holds), with
+    the launch counts set to 0 first: preempted after each round of
+    CHECKPOINT_ROUNDS through the prover's test hook, then resumed; each
+    resumed proof must equal the fixture's bytes and leave no ck_*.npz.
+    Each round's save is timed and its file measured."""
+    import torch
+
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.circuits.dcap import load_demo_input
+    from zkdcap_tpu_torch.plonk import checkpoint
+    from zkdcap_tpu_torch.runtime import DcapProver, circuit_prover
+
+    params_dir = ROOT / "build" / "smoke_checkpoint"
+    shutil.rmtree(params_dir, ignore_errors=True)
+    params_dir.mkdir(parents=True)
+    out = {"saves": {}, "runs": {}}
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    prover = DcapProver(params_dir=str(params_dir), k=fixture["k"], device=dev)
+    adopt(prover, loaded)
+    inp, seed = load_demo_input(), fixture["seed"].encode()
+    create = circuit_prover.create_proof
+    save = checkpoint.ProofCheckpoint.save
+
+    def timed_save(self, name, *args, **kw):
+        t, _ = wall_s(lambda: save(self, name, *args, **kw))
+        out["saves"].setdefault(name, []).append(
+            {"s": t, "bytes": os.path.getsize(self._path(name))})
+
+    checkpoint.ProofCheckpoint.save = timed_save
+    try:
+        for rnd in CHECKPOINT_ROUNDS:
+            circuit_prover.create_proof = lambda *a, **kw: create(*a, _abort_after=rnd, **kw)
+            t0 = time.perf_counter()
+            try:
+                prover.create_proof(inp, timing=False, checkpoint=True, blinding_seed=seed)
+            except checkpoint.Preempted:
+                t_abort = time.perf_counter() - t0
+            else:
+                raise AssertionError(f"the proof was not preempted after {rnd}")
+            finally:
+                circuit_prover.create_proof = create
+            left = sorted(f.name for f in params_dir.glob("ck_*.npz"))
+            want = [f"ck_blake2b_r{i}.npz" for i in range(1, int(rnd[1]) + 1)]
+            if left != want:
+                raise AssertionError(f"after {rnd}: checkpoint files {left}, wanted {want}")
+            before = dict(_build.launches)
+            t_resume, proof = wall_s(lambda: prover.create_proof(
+                inp, timing=False, checkpoint=True, blinding_seed=seed))
+            if proof.hex() != fixture["proof"]:
+                raise AssertionError(f"the proof resumed after {rnd} differs from "
+                                     "testdata/dcap_proof.json")
+            if list(params_dir.glob("ck_*.npz")):
+                raise AssertionError(f"checkpoint files left after the proof resumed at {rnd}")
+            out["runs"][rnd] = {"preempted_s": t_abort, "resume_s": t_resume,
+                                "launches": launched(before),
+                                "rounds_s": dict(prover.last_phases)}
+            say(f"checkpoint: preempted after {rnd} in {t_abort:.3f} s ({', '.join(left)}), "
+                f"resumed in {t_resume:.3f} s to the bytes of testdata/dcap_proof.json, no "
+                f"ck_*.npz left ({card})")
+    finally:
+        checkpoint.ProofCheckpoint.save = save
+        circuit_prover.create_proof = create
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = dict(_build.launches)
+    say("checkpoint saves (seconds, MB): " + "; ".join(
+        f"{name} " + ", ".join(f"{r['s']:.2f} s {r['bytes'] / 1e6:.0f} MB" for r in rs)
+        for name, rs in sorted(out["saves"].items())) + f"; peak device memory "
+        f"{out['peak_gb']:.1f} GB ({card})")
     return out
 
 
@@ -968,7 +1258,13 @@ def main() -> int:
     def say(msg: str) -> None:
         print(msg, flush=True)
 
+    step_start = {}  # the seconds from the start of the script at which each step started
+
+    def mark(step: str) -> None:
+        step_start[step] = time.perf_counter() - T_START
+
     # -- 1. build ----------------------------------------------------------
+    mark("1 build")
     t0 = time.perf_counter()
     _build.lib()
     report["build_s"] = time.perf_counter() - t0
@@ -1003,6 +1299,7 @@ def main() -> int:
     torch.manual_seed(7)
 
     # -- 2. each kernel against its plain version ----------------------------
+    mark("2 kernels")
     kernels = {}
 
     def record(name, source, replaces, got, ref, ms, kernel_ms, plain_ms, n_mont, n_bytes, shape,
@@ -1105,6 +1402,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 3. the main path at k = 18 -------------------------------------------
+    mark("3 engine")
     tau = _dev_tau()
     k = SIZES["k"]
     n18 = 1 << k
@@ -1142,7 +1440,7 @@ def main() -> int:
         shutil.rmtree(srs_dir, ignore_errors=True)
         return gen_srs(k, cache_dir=str(srs_dir), device=dev)
 
-    srs = phase(f"gen_srs({k})", fresh_srs, runs=2)
+    srs = phase(f"gen_srs({k})", fresh_srs, runs=1)
     check = [0, 1, 2, n18 // 3, n18 - 1] + [int(i) for i in gen.integers(0, n18, 3)]
     idx_t = torch.tensor(check, device=dev)
     got_pts = decode_points(G1_SPEC, affine_to_projective(G1_SPEC, srs.g1_powers[idx_t]))
@@ -1284,12 +1582,14 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the commitment engine's path")
 
     # -- 4. the prover --------------------------------------------------------
+    mark("4 prover")
     prover = prove_phase(say, card, dev, srs)
     for name in KERNELS:
         if name not in ("bitonic_sort", "butterfly") and prover["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the prover's path")
 
     # -- 5. the slice's main path: the P-256 prover service ------------------------
+    mark("5 p256")
     fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json").read_text())
     service = service_phase(say, card, dev, fixture)
     for name in KERNELS:
@@ -1297,6 +1597,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the prover service's path")
 
     # -- 6. this slice's main path: the DCAP prover ---------------------------------
+    mark("6 dcap")
     dcap_fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "dcap_proof.json")
                               .read_text())
     dcap = dcap_phase(say, card, dev, dcap_fixture)
@@ -1304,7 +1605,20 @@ def main() -> int:
         if name != "bitonic_sort" and dcap["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the DCAP prover's path")
 
-    # -- 7. where the device time goes: one profiled run of each phase --------
+    # -- 7. GWC: the DCAP proof under the GWC multiopen --------------------------
+    mark("7 gwc")
+    dcap_prover = dcap.pop("prover")
+    gwc = gwc_phase(say, card, dev, dcap_fixture, bytes.fromhex(dcap_fixture["proof"]),
+                    dcap_prover)
+
+    # -- 8. per-round checkpoints of the DCAP proof ------------------------------
+    mark("8 checkpoints")
+    ckpt = checkpoint_phase(say, card, dev, dcap_fixture, dcap_prover)
+    require_kernels("the checkpoint step", ckpt["launches"])
+    del dcap_prover
+
+    # -- 9. where the device time goes: one profiled run of each phase --------
+    mark("9 profiles")
     # every NTT (ntt_module._transform) runs in a marked range, so that the
     # device time of its non-A kernels (the copies of a four-step transform,
     # the flat path's gather) shows per profile; the calls of the default
@@ -1350,7 +1664,8 @@ def main() -> int:
         f"ntt 2^{SIZES['ntt_log']}": lambda: ntt(BN254_FR, a22),
     }
     for name, fn in profiled.items():
-        b = breakdown[name] = device_breakdown(fn, ranges=(NTT_RANGE,))
+        b = breakdown[name] = device_breakdown(
+            fn, ranges=(NTT_RANGE,) if name.startswith("ntt") else ())
         if not b["device_busy_ms"]:
             say(f"profile {name}: device time not measured (no CUDA events in the trace)")
             continue
@@ -1403,8 +1718,7 @@ def main() -> int:
     # device time per proof
     for var in SWITCHES.values():
         sw_name = f"{name} {var}=1"
-        b = breakdown[sw_name] = device_breakdown(switched(var, prove_once), top=8,
-                                                  ranges=(NTT_RANGE,))
+        b = breakdown[sw_name] = device_breakdown(switched(var, prove_once), top=8)
         if not b["device_busy_ms"]:
             say(f"profile {sw_name}: device time not measured (no CUDA events in the trace)")
             continue
@@ -1470,6 +1784,20 @@ def main() -> int:
             f"kernels A-G: {ours}; top: {top} ({card})")
         ntt_share(name, b)
     ntt_module._transform = transform
+    # free the P-256 and DCAP provers before the next services start
+    del prove_once, dcap_once, fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10-11. the cert-chain and quote prover services ---------------------------
+    circuit_steps = {}
+    for step, name in zip((10, 11), CIRCUIT_SERVICES):
+        mark(f"{step} {name}")
+        fix = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / f"{name}_vk.json")
+                         .read_text())
+        circuit_steps[name] = circuit_service_phase(say, card, dev, name, fix,
+                                                    ROOT / "build" / "smoke_params_dcap")
+    mark("12 table")
 
     # the device time each kernel loses per proof against its bound: its
     # profiled device ms times (1 - bound/kernel_ms) at its main row's shape
@@ -1505,10 +1833,19 @@ def main() -> int:
     table = []
     for name, row in kernels.items():
         base = name.split("/")[0]
-        # the two main paths: the P-256 service (step 5) and the DCAP prover (step 6)
-        row["launches"] = service["launches"][base] + dcap["launches"][base]
+        # the main paths: the P-256 service (step 5), the DCAP prover (step 6),
+        # GWC (step 7), the checkpoints (step 8) and the cert-chain and quote
+        # services (steps 10-11)
+        row["launches"] = (service["launches"][base] + dcap["launches"][base]
+                           + sum(c["launches"][base] for c in circuit_steps.values())
+                           + gwc["launches"][base] + ckpt["launches"][base])
         row["launches_service"] = service["launches"][base]
         row["launches_dcap"] = dcap["launches"][base]
+        for cname, c in circuit_steps.items():
+            row[f"launches_{cname}"] = c["launches"][base]
+            row[f"launches_per_{cname}_proof"] = c["runs"][-1]["launches"][base]
+        row["launches_gwc"] = gwc["launches"][base]
+        row["launches_checkpoint"] = ckpt["launches"][base]
         row["launches_engine"] = totals[base]
         row["launches_layout_prover"] = prover["launches"][base]
     for name in KERNELS:
@@ -1517,8 +1854,12 @@ def main() -> int:
         table.append(row)
     report.update({"kernel_checks": list(kernels.values()), "phases": phases,
                    "launch_totals": totals, "prover": prover, "service": service,
-                   "dcap": dcap, "breakdown": breakdown})
+                   "dcap": dcap, "breakdown": breakdown, **circuit_steps, "gwc": gwc,
+                   "checkpoint": ckpt, "step_start_s": step_start,
+                   "total_s": time.perf_counter() - T_START})
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    say(f"chip_smoke: {report['total_s']:.0f} s from the start of the script; steps started at "
+        + ", ".join(f"{st} {t:.0f} s" for st, t in step_start.items()) + f" ({card})")
     say(json.dumps({"kernels": table}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ A params dir whose vk and pinning the port's ``DcapProver`` wrote loads in
 the JAX package's ``DcapProver`` (``load_vk``, host only), and the port's
 verifier accepts the JAX package's seeded proof in
 ``zkdcap_tpu_torch/testdata/dcap_proof.json`` (whose vk commitments come
-from the JAX package's keygen).
+from the JAX package's keygen); both packages' verifiers accept the card's
+GWC proof of the demo input in that file under ``multiopen="gwc"``.
 """
 
 import json
@@ -158,11 +159,32 @@ def test_fixture_proof_verifies(tmp_path, port_side, fixture):
     assert not prover.verify(bytes(bad))
 
 
+def test_card_gwc_proof_verifies(tmp_path, jax_side, port_side, fixture):
+    """The card's GWC proof of the demo input (``card_gwc``, under the
+    fixture's seed) passes the JAX package's host verifier with the JAX
+    keygen's vk and the port's, both with ``multiopen="gwc"``; one flipped
+    byte fails both, and the SHPLONK verifiers reject it."""
+    card = fixture["card_gwc"]
+    assert card["seed"] == fixture["seed"]
+    proof = bytes.fromhex(card["proof"])
+    assert len(proof) > len(bytes.fromhex(fixture["proof"]))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    for cls, side, sub in ((JDcapProver, jax_side, "jax"), (DcapProver, port_side, "port")):
+        (tmp_path / sub).mkdir()
+        (tmp_path / sub / "dcap_vk_k17.json").write_text(json.dumps(fixture["vk"]))
+        (tmp_path / sub / "dcap_pinning_k17.json").write_text(
+            side["compiled"].pinning.to_json())
+        gwc = cls(params_dir=str(tmp_path / sub), k=K, multiopen="gwc")
+        shplonk = cls(params_dir=str(tmp_path / sub), k=K)
+        for prover in (gwc, shplonk):
+            _cached_compile(prover, side)
+        assert gwc.verify(proof), sub
+        assert not gwc.verify(bytes(bad)), sub
+        assert not shplonk.verify(proof), sub
+
+
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DcapProver(params_dir=str(tmp_path), multiopen="gwc")
     prover = DcapProver(params_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prover.create_proof(tdcap.load_demo_input(), shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.create_proof(tdcap.load_demo_input(), checkpoint=True)

@@ -56,7 +56,9 @@ def test_import_pulls_in_no_jax():
         "import zkdcap_tpu_torch.plonk.mock, zkdcap_tpu_torch.circuits.dcap\n"
         "import zkdcap_tpu_torch.runtime.circuit_prover, zkdcap_tpu_torch.runtime.dcap_prover\n"
         "import zkdcap_tpu_torch.tools.kernel_variants, zkdcap_tpu_torch.tools.kernel_ab\n"
-        "import zkdcap_tpu_torch.tools.proof_ab\n"
+        "import zkdcap_tpu_torch.tools.proof_ab, zkdcap_tpu_torch.commit.gwc\n"
+        "import zkdcap_tpu_torch.plonk.checkpoint, zkdcap_tpu_torch.circuits.cert_chain\n"
+        "import zkdcap_tpu_torch.circuits.quote, zkdcap_tpu_torch.runtime.chain_provers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
         "assert not bad, bad\n"
@@ -84,12 +86,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(tmp_path):
         create_proof(params, pk, advice, circ.instances, TranscriptWriter(), blinding_seed=b"s")
     # the prover services: keygen needs the card unless device="cpu"
     from zkdcap_tpu_torch.plonk.mock import MockProver
-    from zkdcap_tpu_torch.runtime import DcapProver, ECDSAProver
+    from zkdcap_tpu_torch.runtime import CertChainProver, DcapProver, ECDSAProver, QuoteProver
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ECDSAProver(params_dir=str(tmp_path / "params"), k=18).keygen()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        DcapProver(params_dir=str(tmp_path / "dcap"), k=17).keygen()
+    for cls in (DcapProver, CertChainProver, QuoteProver):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(params_dir=str(tmp_path / cls.NAME), k=17).keygen()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MockProver(circ.k, circ.cs, circ.fixed_values, circ.advice_values, circ.instances)
 

@@ -3,7 +3,8 @@
 ``zkdcap_tpu_torch/testdata/reference_proofs.json`` holds the JAX package's
 proofs of the circuits of ``REFERENCE_CASES`` (the toy circuit of
 ``tests/test_plonk_e2e.py`` under the blake2b, poseidon and keccak
-transcripts, and the small flex-gate circuit) under fixed blinding seeds.
+transcripts, and the small flex-gate circuit) under fixed blinding seeds,
+with the SHPLONK multiopen (``proofs``) and with GWC (``gwc_proofs``).
 The port's CPU tests and ``chip_smoke.py`` hold the port's proofs to these
 bytes; this test proves the circuits again with
 ``zkdcap_tpu.plonk.prover.create_proof`` and requires the file to be equal,
@@ -19,7 +20,12 @@ beyond tier-1's budget, so its test is marked ``slow``.
 Regenerate the fixtures after a deliberate change of the proof format with
 ``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py`` (the small
 proofs) and ``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py
-p256`` (the P-256 proof).
+p256`` (the P-256 proof); ``... dcap``, ``... cert_chain`` and ``... quote``
+make the DCAP fixture and the JAX keygen's vks of the cert-chain and quote
+circuits (``testdata/{cert_chain,quote}_vk.json``), and ``... card
+build/chip_smoke.json`` adds the card's proofs of a ``chip_smoke.py`` run
+to those three files (``CARD_KEYS``), which later card runs and the CPU
+tests hold to.
 """
 
 import contextlib
@@ -52,6 +58,14 @@ P256_K, P256_LOOKUP_BITS, P256_SEED = 18, 17, b"p256-reference-vector"
 DCAP_FIXTURE = ROOT / "zkdcap_tpu_torch" / "testdata" / "dcap_proof.json"
 # the DCAP fixture's circuit size and blinding seed
 DCAP_K, DCAP_SEED = 17, b"dcap-demo-input"
+# the fixtures of the cert-chain and quote circuits: the JAX keygen's vk
+CIRCUIT_FIXTURES = {
+    "cert_chain": ROOT / "zkdcap_tpu_torch" / "testdata" / "cert_chain_vk.json",
+    "quote": ROOT / "zkdcap_tpu_torch" / "testdata" / "quote_vk.json",
+}
+# keys that the card's runs add to a fixture (its proofs there, with their
+# seeds); the JAX package's CPU path does not make them
+CARD_KEYS = ("card", "card_gwc")
 
 
 def reference_fixture(srs_dir: str) -> dict:
@@ -62,11 +76,14 @@ def reference_fixture(srs_dir: str) -> dict:
         params = JParamsKZG(srs=j_gen_srs(circ.k, cache_dir=srs_dir))
         pk = j_keygen(params, circ.cs, circ.fixed_values)
         advice = [jmont.encode_ints(J_FR, col) for col in padded_advice(circ)]
+
+        def prove(kind, multiopen):
+            return j_create_proof(params, pk, advice, circ.instances, JTranscriptWriter(kind),
+                                  blinding_seed=seed, multiopen=multiopen).hex()
+
         out[name] = {"k": circ.k, "seed": seed.decode(), "instances": circ.instances,
-                     "proofs": {kind: j_create_proof(params, pk, advice, circ.instances,
-                                                     JTranscriptWriter(kind),
-                                                     blinding_seed=seed).hex()
-                                for kind in kinds}}
+                     "proofs": {kind: prove(kind, "shplonk") for kind in kinds},
+                     "gwc_proofs": {kind: prove(kind, "gwc") for kind in kinds}}
     return out
 
 
@@ -210,6 +227,71 @@ def dcap_fixture(params_dir: str, k: int = DCAP_K, seed: bytes = DCAP_SEED) -> d
             "proof": proof.hex(), "seconds": round(time.perf_counter() - t0, 1)}
 
 
+def structure_json(v):
+    """A structure input (a dataclass of bytes, ints, tuples and lists) as
+    JSON: bytes as hex, ints as 0x-hex."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(v):
+        return {f.name: structure_json(getattr(v, f.name)) for f in dataclasses.fields(v)}
+    if isinstance(v, bytes):
+        return v.hex()
+    if isinstance(v, int):
+        return hex(v)
+    return [structure_json(x) for x in v]
+
+
+def circuit_structure(name: str, mod_root: str = "zkdcap_tpu"):
+    """The structure input that the fixture of circuit `name` was made for,
+    from either package (`mod_root`): the Intel chain that the JAX CLI's
+    ``cert-chain-prove`` proves, and ``quote-prove``'s demo quote."""
+    import importlib
+
+    if name == "cert_chain":
+        return importlib.import_module(f"{mod_root}.circuits.cert_chain").make_intel_demo_chain()
+    return importlib.import_module(f"{mod_root}.circuits.quote").make_demo_quote()
+
+
+def circuit_vk_fixture(name: str, params_dir: str, k: int = 17) -> dict:
+    """The JAX package's keygen of the cert-chain or quote circuit on its
+    structure input (``circuit_structure``), with the commitments taken from
+    the dev tau (``_dev_tau_commitments``): the vk commitments in the layout
+    of the prover's ``{NAME}_vk_k{k}.json`` (``vk``), with k, the lookup bits
+    and the structure input. The card's proofs, which these vks verify, are
+    added under ``CARD_KEYS``."""
+    from zkdcap_tpu.runtime.chain_provers import CertChainProver, QuoteProver
+
+    cls = CertChainProver if name == "cert_chain" else QuoteProver
+    structure = circuit_structure(name)
+    prover = cls(params_dir=params_dir, k=k, structure=structure)
+    prover._params = prover.verifier_params()  # no G1 powers: the commitments use the tau
+    t0 = time.perf_counter()
+    with _dev_tau_commitments():
+        _, compiled = prover._compile()
+        pk = j_keygen(prover._params, compiled.cs, compiled.fixed_values, prover.transcript_kind)
+    return {"k": k, "lookup_bits": prover.lookup_bits, "transcript": prover.transcript_kind,
+            "structure": structure_json(structure), "vk": prover._vk_data(pk.vk),
+            "seconds": round(time.perf_counter() - t0, 1)}
+
+
+def add_card_proofs(report: dict) -> None:
+    """Write the card's proofs from a ``chip_smoke.py`` report
+    (``build/chip_smoke.json``) into the fixtures, with their seeds: the
+    cert-chain and quote proofs as ``card``, the GWC DCAP proof as
+    ``card_gwc``."""
+    targets = [(CIRCUIT_FIXTURES[name], "card", report[name]) for name in CIRCUIT_FIXTURES]
+    targets.append((DCAP_FIXTURE, "card_gwc", report["gwc"]))
+    for path, key, step in targets:
+        fixture = json.loads(path.read_text())
+        fixture[key] = {"seed": step["seed"], "proof": step["proof"]}
+        path.write_text(json.dumps(fixture, indent=1) + "\n")
+        print(f"wrote {key} into {path}")
+
+
+def _without(d: dict, keys) -> dict:
+    return {k: v for k, v in d.items() if k not in keys}
+
+
 def test_fixture_is_current(tmp_path):
     assert json.loads(FIXTURE.read_text()) == reference_fixture(str(tmp_path))
 
@@ -226,11 +308,27 @@ def test_p256_fixture_is_current(tmp_path):
 def test_dcap_fixture_is_current(tmp_path):
     want = json.loads(DCAP_FIXTURE.read_text())
     got = dcap_fixture(str(tmp_path), want["k"], want["seed"].encode())
-    assert {k: v for k, v in got.items() if k != "seconds"} == \
-        {k: v for k, v in want.items() if k != "seconds"}
+    assert _without(got, ("seconds",)) == _without(want, ("seconds",) + CARD_KEYS)
+
+
+@pytest.mark.slow
+def test_cert_chain_fixture_is_current(tmp_path):
+    want = json.loads(CIRCUIT_FIXTURES["cert_chain"].read_text())
+    got = circuit_vk_fixture("cert_chain", str(tmp_path), want["k"])
+    assert _without(got, ("seconds",)) == _without(want, ("seconds",) + CARD_KEYS)
+
+
+@pytest.mark.slow
+def test_quote_fixture_is_current(tmp_path):
+    want = json.loads(CIRCUIT_FIXTURES["quote"].read_text())
+    got = circuit_vk_fixture("quote", str(tmp_path), want["k"])
+    assert _without(got, ("seconds",)) == _without(want, ("seconds",) + CARD_KEYS)
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["card"]:
+        add_card_proofs(json.loads(Path(sys.argv[2]).read_text()))
+        sys.exit(0)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -245,6 +343,14 @@ if __name__ == "__main__":
             fixture = dcap_fixture(tmp)
             DCAP_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
             print(f"wrote {DCAP_FIXTURE} in {fixture['seconds']} s")
+        elif sys.argv[1:2] in (["cert_chain"], ["quote"]):
+            path = CIRCUIT_FIXTURES[sys.argv[1]]
+            fixture = circuit_vk_fixture(sys.argv[1], tmp)
+            if path.exists():  # keep the card's proofs
+                old = json.loads(path.read_text())
+                fixture.update((k, old[k]) for k in CARD_KEYS if k in old)
+            path.write_text(json.dumps(fixture, indent=1) + "\n")
+            print(f"wrote {path} in {fixture['seconds']} s")
         else:
             FIXTURE.write_text(json.dumps(reference_fixture(tmp), indent=1) + "\n")
             print(f"wrote {FIXTURE}")

@@ -73,15 +73,11 @@ def test_unported_options_raise(prover, golden):
     instances, proof = golden
     inp = ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ECDSAProver(params_dir=prover.params_dir, multiopen="gwc")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         prover.verify(instances, proof, evm=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prover.gen_evm_verifier()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prover.create_proof(inp, shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.create_proof(inp, checkpoint=True)
 
 
 def test_artifact_paths_match_reference(prover):
@@ -114,3 +110,27 @@ def test_pk_file_is_the_reference_format(tmp_path):
     members = [[(i.filename, i.compress_type) for i in zipfile.ZipFile(tmp_path / f).infolist()]
                for f in ("port.npz", "numpy.npz")]
     assert members[0] == members[1]
+
+
+def test_pk_file_deflated_in_chunks(tmp_path):
+    """Members deflated in many chunks (and an empty one) inflate to numpy's
+    .npy bytes, and the zip checks clean."""
+    import zipfile
+
+    import numpy as np
+
+    from zkdcap_tpu_torch.interop import savez_deflated
+
+    rng = np.random.default_rng(4)
+    arrays = {"sigma_extended": rng.integers(0, 1 << 16, (3, 4096, 16), dtype=np.uint32),
+              "zh_inv_ext": rng.integers(0, 1 << 16, (1000, 16), dtype=np.uint32),
+              "fixed_coeff": np.zeros((0, 16), np.uint32)}
+    savez_deflated(str(tmp_path / "port.npz"), arrays, chunk=1 << 12)
+    np.savez(tmp_path / "numpy.npz", **arrays)
+    with zipfile.ZipFile(tmp_path / "port.npz") as port, \
+            zipfile.ZipFile(tmp_path / "numpy.npz") as ref:
+        assert port.testzip() is None
+        assert [i.filename for i in port.infolist()] == [i.filename for i in ref.infolist()]
+        for info in port.infolist():
+            assert info.compress_type == zipfile.ZIP_DEFLATED
+            assert port.read(info.filename) == ref.read(info.filename)

@@ -6,6 +6,8 @@ same 32-bit patterns as int32. Both directions keep every bit.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -61,18 +63,53 @@ def proving_key_from_numpy(cs, k: int, arrays: dict, fixed_commitments, permutat
     return ProvingKey(vk=vk, domain=Domain(BN254_FR, k, cs.extended_k(k)), **fields)
 
 
-def savez_deflated(path: str, arrays: dict, level: int = 1) -> None:
+def savez_deflated(path: str, arrays: dict, level: int = 1, chunk: int = 1 << 24) -> None:
     """``np.savez_compressed``'s file (a zip of deflated ``.npy`` members,
     read by ``np.load`` in either package) at deflate level 1: the pk's
     limbs are near-random, so numpy's default level 6 spends several times
-    longer for about 2% fewer bytes."""
+    longer for about 2% fewer bytes. Each member is deflated in chunks of
+    `chunk` bytes on one thread per host core (zlib releases the GIL), each
+    chunk ending on a byte boundary (a sync flush) so that their
+    concatenation is one deflate stream, as pigz writes it."""
+    import io
+    import time
     import zipfile
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
 
-    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED,
-                         compresslevel=level) as zf:
+    def deflate(piece: memoryview, last: bool) -> bytes:
+        c = zlib.compressobj(level, zlib.DEFLATED, -zlib.MAX_WBITS)
+        return c.compress(piece) + c.flush(zlib.Z_FINISH if last else zlib.Z_SYNC_FLUSH)
+
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf, \
+            ThreadPoolExecutor(os.cpu_count()) as pool:
         for name, arr in arrays.items():
-            with zf.open(name + ".npy", "w", force_zip64=True) as f:
-                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
+            arr = np.ascontiguousarray(arr)
+            header = io.BytesIO()
+            np.lib.format.write_array_header_1_0(
+                header, np.lib.format.header_data_from_array_1_0(arr))
+            data = memoryview(arr.reshape(-1).view(np.uint8))
+            pieces = [memoryview(header.getvalue())]
+            pieces += [data[i : i + chunk] for i in range(0, len(data), chunk)]
+            parts = [pool.submit(deflate, piece, i == len(pieces) - 1)
+                     for i, piece in enumerate(pieces)]
+            crc = 0
+            for piece in pieces:
+                crc = zlib.crc32(piece, crc)
+            parts = [f.result() for f in parts]
+            info = zipfile.ZipInfo(name + ".npy", date_time=time.localtime()[:6])
+            info.compress_type = zipfile.ZIP_DEFLATED
+            info.file_size = sum(len(piece) for piece in pieces)
+            info.compress_size = sum(len(part) for part in parts)
+            info.CRC = crc
+            info.header_offset = zf.fp.tell()
+            zf.fp.write(info.FileHeader(zip64=True))
+            for part in parts:
+                zf.fp.write(part)
+            zf.filelist.append(info)
+            zf.NameToInfo[info.filename] = info
+            zf.start_dir = zf.fp.tell()
+            zf._didModify = True
 
 
 def save_pk(path: str, pk) -> None:

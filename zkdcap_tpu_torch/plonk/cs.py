@@ -53,6 +53,7 @@ class ConstraintSystem:
         self.lookups: list[Lookup] = []
         # columns participating in the copy-constraint permutation, in order
         self.permutation_columns: list[Column] = []
+        self._equality: set[Column] = set()  # the same columns, for membership
         # copy constraints: ((col_a, row_a), (col_b, row_b))
         self.copies: list[tuple[tuple[Column, int], tuple[Column, int]]] = []
         # cosmetic column names for failure localisation (halo2's
@@ -78,7 +79,8 @@ class ConstraintSystem:
         return c
 
     def enable_equality(self, col: Column) -> None:
-        if col not in self.permutation_columns:
+        if col not in self._equality:
+            self._equality.add(col)
             self.permutation_columns.append(col)
 
     def annotate_column(self, col: Column, name: str) -> None:

@@ -10,8 +10,11 @@ Port of ``zkdcap_tpu/plonk/prover.py`` (halo2 ``create_proof``):
   6. quotient h(X) on the extended coset     -- gate/permutation/lookup terms
   7. evaluations at x                        -- power-table sums
   8. SHPLONK multiopen                       -- poly division + 2 MSMs
+     (or GWC: one witness quotient and one MSM per distinct point)
 
-The transcript runs on the host between rounds. Blinding comes from a
+The transcript runs on the host between rounds. With ``checkpoint_dir``,
+rounds 1-6 save their state (``plonk/checkpoint.py``) and a re-invoked
+proof resumes after the last saved round. Blinding comes from a
 caller-seeded PRNG when a seed is given (byte-identical proofs), else from
 fresh entropy. Every Montgomery product runs kernel E on the card.
 """
@@ -25,6 +28,7 @@ import time
 
 import torch
 
+from ..commit.gwc import gwc_open
 from ..commit.kzg import ParamsKZG
 from ..commit.shplonk import ProverQuery, shplonk_open
 from ..device import resolve
@@ -33,6 +37,7 @@ from ..fields.params import BN254_FR
 from ..ntt import intt, intt_many
 from ..poly.ops import batched_sum, power_table_for, power_table_row
 from ..transcript import TranscriptWriter
+from .checkpoint import Preempted, ProofCheckpoint
 from .cs import ConstraintSystem
 from .expression import Evaluator
 from .keygen import DELTA, ProvingKey, collect_queries
@@ -294,16 +299,21 @@ def create_proof(
     each round's wall time to stderr (every round ends on a host read).
 
     blinding_seed=None draws fresh entropy per proof (hiding commitments);
-    pass a seed only for reproducible proofs."""
+    pass a seed only for reproducible proofs.
+
+    multiopen: "shplonk" (BDFG20, the reference's pick) or "gwc" (GWC19).
+
+    checkpoint_dir: after each commit round r1..r6 the transcript op log and
+    the round's arrays persist to <dir>/ck_<transcript kind>_rN.npz, in the
+    JAX package's format; a re-invoked create_proof with the same inputs
+    resumes after the last completed round and emits a byte-identical
+    proof. Checkpoints are removed on success. `_abort_after` is a
+    test-only hook simulating preemption after a named round (r1..r6)."""
     if mesh is not None:
         raise NotImplementedError(
-            "create_proof(mesh=...) is not ported yet (ROADMAP.md queue 1, item 10)")
-    if checkpoint_dir is not None or _abort_after is not None:
-        raise NotImplementedError(
-            "proof checkpoints are not ported yet (ROADMAP.md queue 1, item 6: plonk/checkpoint.py)")
-    if multiopen != "shplonk":
-        raise NotImplementedError(
-            f"multiopen={multiopen!r} is not ported yet (ROADMAP.md queue 1, item 5: commit/gwc.py)")
+            "create_proof(mesh=...) is not ported yet (ROADMAP.md queue 1, slice 10: parallel/)")
+    if multiopen not in ("shplonk", "gwc"):
+        raise ValueError(f"unknown multiopen {multiopen!r}")
     dev = resolve(device)
     if blinding_seed is None:
         blinding_seed = os.urandom(32)
@@ -328,6 +338,31 @@ def create_proof(
     u = cs.usable_rows(n)
     domain = pk.domain
 
+    # per-transcript-round checkpoints; no-op when checkpoint_dir is None
+    ck = None
+    ck_fp = ""
+    if checkpoint_dir is not None:
+        ck_fp = hashlib.blake2b(
+            repr((pk.vk.k, transcript.kind, pk.vk.transcript_repr(),
+                  [list(c) for c in instances])).encode(),
+            digest_size=16,
+        ).hexdigest()
+        ck = ProofCheckpoint(checkpoint_dir, tag=transcript.kind)
+
+    def _resume(round_name):
+        """The saved state of a round, or None when it must run."""
+        if ck and ck.has(round_name):
+            return ck.load(round_name, transcript, ck_fp, device=dev)
+        return None
+
+    def _done(round_name, **state):
+        if ck:
+            ck.save(round_name, transcript, ck_fp, **state)
+
+    def _abort(round_name):
+        if _abort_after == round_name:
+            raise Preempted(f"aborted after {round_name} (test hook)")
+
     # --- round 0: bind vk + public inputs --------------------------------
     transcript.common_scalar(pk.vk.transcript_repr())
     instances = [list(col) for col in instances]
@@ -341,34 +376,51 @@ def create_proof(
     # --- round 1: advice commitments -------------------------------------
     if len(advice_values) != cs.num_advice:
         raise ValueError(f"{len(advice_values)} advice columns for {cs.num_advice}")
-    advice_lagrange = []
-    for i, a in enumerate(advice_values):
-        a = a.to(dev).clone()
-        a[u + 1 :] = _blind_vals(b"adv%d" % i, n - u - 1)
-        advice_lagrange.append(a)
-    advice_coeff = intt_many(F, advice_lagrange)
-    for pt in params.commit_many(advice_coeff):
-        transcript.write_point(pt)
+    st = _resume("r1")
+    if st is not None:
+        blinding_seed = st["seed"]  # later rounds' blinding must match
+        advice_lagrange, advice_coeff = st["advice_lagrange"], st["advice_coeff"]
+    else:
+        advice_lagrange = []
+        for i, a in enumerate(advice_values):
+            a = a.to(dev).clone()
+            a[u + 1 :] = _blind_vals(b"adv%d" % i, n - u - 1)
+            advice_lagrange.append(a)
+        advice_coeff = intt_many(F, advice_lagrange)
+        for pt in params.commit_many(advice_coeff):
+            transcript.write_point(pt)
+        _done("r1", seed=blinding_seed, advice_lagrange=advice_lagrange,
+              advice_coeff=advice_coeff)
+    _abort("r1")
     _phase("advice commit")
     theta = transcript.squeeze_challenge()
 
     # --- round 2: lookup permuted columns --------------------------------
-    lookup_data = []
-    if cs.lookups:
-        ev = Evaluator(pk.fixed_lagrange, advice_lagrange, instance_lagrange,
-                       challenges={"theta": theta})
-        perm_lagr = []
-        for li, (a_comp, s_comp) in enumerate(_lookup_compress(cs, ev, _row(theta))):
-            a_order, s_pos = lookup_permute(mont.from_mont(F, a_comp), mont.from_mont(F, s_comp), u)
-            a_perm = torch.cat([a_comp[:u][a_order], _blind_vals(b"lkA%d" % li, n - u)])
-            s_perm = torch.cat([s_comp[:u][s_pos], _blind_vals(b"lkS%d" % li, n - u)])
-            lookup_data.append({"a": a_comp, "s": s_comp, "a_perm": a_perm, "s_perm": s_perm})
-            perm_lagr += [a_perm, s_perm]
-        perm_coeffs = intt_many(F, perm_lagr)
-        for li, ld in enumerate(lookup_data):
-            ld["a_perm_coeff"], ld["s_perm_coeff"] = perm_coeffs[2 * li], perm_coeffs[2 * li + 1]
-        for pt in params.commit_many(perm_coeffs):
-            transcript.write_point(pt)
+    st = _resume("r2")
+    if st is not None:
+        lookup_data = st["lookup_data"]
+    else:
+        lookup_data = []
+        if cs.lookups:
+            ev = Evaluator(pk.fixed_lagrange, advice_lagrange, instance_lagrange,
+                           challenges={"theta": theta})
+            perm_lagr = []
+            for li, (a_comp, s_comp) in enumerate(_lookup_compress(cs, ev, _row(theta))):
+                a_order, s_pos = lookup_permute(mont.from_mont(F, a_comp),
+                                                mont.from_mont(F, s_comp), u)
+                a_perm = torch.cat([a_comp[:u][a_order], _blind_vals(b"lkA%d" % li, n - u)])
+                s_perm = torch.cat([s_comp[:u][s_pos], _blind_vals(b"lkS%d" % li, n - u)])
+                lookup_data.append({"a": a_comp, "s": s_comp, "a_perm": a_perm,
+                                    "s_perm": s_perm})
+                perm_lagr += [a_perm, s_perm]
+            perm_coeffs = intt_many(F, perm_lagr)
+            for li, ld in enumerate(lookup_data):
+                ld["a_perm_coeff"] = perm_coeffs[2 * li]
+                ld["s_perm_coeff"] = perm_coeffs[2 * li + 1]
+            for pt in params.commit_many(perm_coeffs):
+                transcript.write_point(pt)
+        _done("r2", lookup_data=lookup_data)
+    _abort("r2")
     _phase("lookup permute+commit")
     beta = transcript.squeeze_challenge()
     gamma = transcript.squeeze_challenge()
@@ -376,38 +428,62 @@ def create_proof(
 
     # --- round 3: permutation grand products -----------------------------
     m = len(cs.permutation_columns)
-    perm_z_coeff = []
-    if m:
-        blinds = [_blind_vals(b"permz%d" % zi, n - u - 1)
-                  for zi in range(-(-m // cs.permutation_chunk_len))]
-        perm_z_coeff = intt_many(F, _perm_z(pk, advice_lagrange, instance_lagrange,
-                                            beta_r, gamma_r, blinds))
-    for pt in params.commit_many(perm_z_coeff):
-        transcript.write_point(pt)
+    st = _resume("r3")
+    if st is not None:
+        perm_z_coeff = st["perm_z_coeff"]
+    else:
+        perm_z_coeff = []
+        if m:
+            blinds = [_blind_vals(b"permz%d" % zi, n - u - 1)
+                      for zi in range(-(-m // cs.permutation_chunk_len))]
+            perm_z_coeff = intt_many(F, _perm_z(pk, advice_lagrange, instance_lagrange,
+                                                beta_r, gamma_r, blinds))
+        for pt in params.commit_many(perm_z_coeff):
+            transcript.write_point(pt)
+        _done("r3", perm_z_coeff=perm_z_coeff)
+    _abort("r3")
     _phase("permutation z")
 
     # --- round 4: lookup grand products ----------------------------------
-    if lookup_data:
+    st = _resume("r4")
+    if st is not None:
+        z_coeffs = st["z_coeffs"]
+    elif lookup_data:
         blinds = [_blind_vals(b"lkz%d" % li, n - u - 1) for li in range(len(lookup_data))]
         z_coeffs = intt_many(F, _lookup_z(pk, lookup_data, beta_r, gamma_r, blinds))
-        for ld, zc in zip(lookup_data, z_coeffs):
-            ld["z_coeff"] = zc
-            for key in ("a", "s", "a_perm", "s_perm"):
-                del ld[key]  # the quotient reads the coefficient forms only
         for pt in params.commit_many(z_coeffs):
             transcript.write_point(pt)
+    else:
+        z_coeffs = []
+    for ld, zc in zip(lookup_data, z_coeffs):
+        ld["z_coeff"] = zc
+        for key in ("a", "s", "a_perm", "s_perm"):
+            ld.pop(key, None)  # the quotient reads the coefficient forms only
+    if st is None:
+        _done("r4", z_coeffs=z_coeffs)
+    _abort("r4")
     _phase("lookup z")
 
     # --- round 5: vanishing random poly ----------------------------------
     random_poly = _enc(_seeded_rand_ints(blinding_seed + b"rand", n), dev)
-    transcript.write_point(params.commit(random_poly))
+    # the poly is seed-determined: a resume restores only the transcript
+    if _resume("r5") is None:
+        transcript.write_point(params.commit(random_poly))
+        _done("r5")
+    _abort("r5")
     y = transcript.squeeze_challenge()
 
     # --- round 6: quotient ------------------------------------------------
-    h_pieces = _compute_quotient(pk, advice_coeff, instance_lagrange, lookup_data,
-                                 perm_z_coeff, _row(theta), beta_r, gamma_r, _row(y))
-    for pt in params.commit_many(h_pieces):
-        transcript.write_point(pt)
+    st = _resume("r6")
+    if st is not None:
+        h_pieces = st["h_pieces"]
+    else:
+        h_pieces = _compute_quotient(pk, advice_coeff, instance_lagrange, lookup_data,
+                                     perm_z_coeff, _row(theta), beta_r, gamma_r, _row(y))
+        for pt in params.commit_many(h_pieces):
+            transcript.write_point(pt)
+        _done("r6", h_pieces=h_pieces)
+    _abort("r6")
     _phase("quotient")
     x = transcript.squeeze_challenge()
 
@@ -438,8 +514,11 @@ def create_proof(
     _phase("evals")
 
     # --- round 8: multiopen ----------------------------------------------
-    shplonk_open(params, transcript, queries, evals=eval_cache)
+    opener = gwc_open if multiopen == "gwc" else shplonk_open
+    opener(params, transcript, queries, evals=eval_cache)
     _phase("multiopen")
+    if ck:
+        ck.clear()  # consumed: a finished proof leaves no resume state
     return transcript.finalize()
 
 

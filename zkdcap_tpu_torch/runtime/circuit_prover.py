@@ -18,9 +18,10 @@ Subclass contract:
   structure_input()            -> sample input (fixed circuit structure)
   trace_inputs(inp)            -> flat int list for tape replay
 
-Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md:
-``create_proof(shards > 1)``, ``create_proof(checkpoint=True)`` and
-``multiopen="gwc"``.
+``multiopen="gwc"`` selects the GWC19 multiopen for proofs and verify;
+``create_proof(checkpoint=True)`` saves each round's state under the params
+dir and resumes an interrupted proof. Not ported yet, and raising
+``NotImplementedError`` naming ROADMAP.md: ``create_proof(shards > 1)``.
 """
 
 from __future__ import annotations
@@ -55,9 +56,7 @@ class CircuitProver:
     def __init__(self, params_dir: str = "params", k: int | None = None,
                  transcript: str = "blake2b", lookup_bits: int | None = None,
                  multiopen: str = "shplonk", device=None):
-        if multiopen == "gwc":
-            raise _not_ported('multiopen="gwc"', "item 5: commit/gwc.py")
-        if multiopen != "shplonk":
+        if multiopen not in ("shplonk", "gwc"):
             raise ValueError(f"unknown multiopen {multiopen!r}")
         self.params_dir = params_dir
         self.k = k if k is not None else self.K_DEFAULT
@@ -263,11 +262,11 @@ class CircuitProver:
                      blinding_seed: bytes | None = None) -> bytes:
         """blinding_seed: passed to ``plonk.prover.create_proof``; None draws
         fresh entropy (hiding proofs), a seed gives reproducible bytes.
+        checkpoint: persist per-round state under params_dir for resumable
+        proofs (a re-invoked proof with the same input resumes).
         Phase times land in ``last_phases`` and ``metrics``."""
         if shards is not None and shards > 1:
-            raise _not_ported("create_proof(shards > 1)", "item 10: parallel/")
-        if checkpoint:
-            raise _not_ported("create_proof(checkpoint=True)", "item 6: plonk/checkpoint.py")
+            raise _not_ported("create_proof(shards > 1)", "slice 10: parallel/")
         from ..witness.native import eval_tape_raw
 
         self.last_phases.clear()
@@ -300,6 +299,7 @@ class CircuitProver:
         proof = create_proof(self.params(), pk, advice_dev, instances,
                              TranscriptWriter(pk.vk.transcript_kind),
                              blinding_seed=blinding_seed, timing=timing,
+                             checkpoint_dir=self.params_dir if checkpoint else None,
                              multiopen=self.multiopen, device=self.device)
         t = _p("create_proof", t)
         metrics.dump(os.path.join(self.params_dir, "metrics.jsonl"))

@@ -11,10 +11,13 @@ the chosen transcript (blake2b native / keccak EVM). ``verify`` is host-only.
 The circuit structure is witness-independent, so keygen traces a fixed
 valid sample signature; proofs replay the tape with the real input.
 
+``multiopen="gwc"`` selects the GWC19 multiopen for proofs and verify;
+``create_proof(checkpoint=True)`` saves each round's state under the params
+dir and resumes an interrupted proof (``plonk/checkpoint.py``).
+
 Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md:
 ``verify(evm=True)`` and ``gen_evm_verifier`` (the ``evm/`` package),
-``create_proof(shards > 1)`` (``parallel/``), ``create_proof(checkpoint=True)``
-and ``multiopen="gwc"``.
+``create_proof(shards > 1)`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -69,9 +72,7 @@ class ECDSAProver:
     def __init__(self, params_dir: str = "params", k: int = K_DEFAULT,
                  transcript: str = "blake2b", lookup_bits: int | None = None,
                  multiopen: str = "shplonk", device=None):
-        if multiopen == "gwc":
-            raise _not_ported('multiopen="gwc"', "item 5: commit/gwc.py")
-        if multiopen != "shplonk":
+        if multiopen not in ("shplonk", "gwc"):
             raise ValueError(f"unknown multiopen {multiopen!r}")
         self.params_dir = params_dir
         self.k = k
@@ -230,11 +231,11 @@ class ECDSAProver:
         ZKDCAP_SELF_VERIFY env var (reference analog of debug_assertions).
         blinding_seed: passed to ``plonk.prover.create_proof``; None draws
         fresh entropy (hiding proofs), a seed gives reproducible bytes.
+        checkpoint: persist per-round state under params_dir for resumable
+        proofs (a re-invoked proof with the same input resumes).
         Phase times land in ``last_phases`` and ``metrics``."""
         if shards is not None and shards > 1:
-            raise _not_ported("create_proof(shards > 1)", "item 10: parallel/")
-        if checkpoint:
-            raise _not_ported("create_proof(checkpoint=True)", "item 6: plonk/checkpoint.py")
+            raise _not_ported("create_proof(shards > 1)", "slice 10: parallel/")
         from ..witness.native import eval_tape_raw
 
         self.last_phases.clear()
@@ -268,6 +269,7 @@ class ECDSAProver:
         kind = "keccak" if evm else self.transcript_kind
         proof = create_proof(self.params(), pk, advice_dev, instances, TranscriptWriter(kind),
                              blinding_seed=blinding_seed, timing=timing,
+                             checkpoint_dir=self.params_dir if checkpoint else None,
                              multiopen=self.multiopen, device=self.device)
         t = _p("create_proof", t)
         # structured metrics artifact: one JSON-lines file per params dir,
@@ -296,13 +298,13 @@ class ECDSAProver:
 
     def gen_evm_verifier(self) -> str:
         """Solidity verifier source for this circuit (base.rs:251-271)."""
-        raise _not_ported("gen_evm_verifier", "item 9: the evm/ package")
+        raise _not_ported("gen_evm_verifier", "slice 9: the evm/ package")
 
     def verify(self, inp_instances: list[int], proof: bytes, evm: bool = False) -> bool:
         """Host verify against the vk of the params dir. evm=True (executing
         the generated Solidity verifier) raises until evm/ is ported."""
         if evm:
-            raise _not_ported("verify(evm=True)", "item 9: the evm/ package")
+            raise _not_ported("verify(evm=True)", "slice 9: the evm/ package")
         vk = self.load_vk()
         return verify_proof(self.verifier_params(), vk, [inp_instances], proof,
                             transcript_kind=self.transcript_kind,

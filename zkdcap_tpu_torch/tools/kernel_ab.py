@@ -17,7 +17,7 @@ imports and builds that checkout's kernels):
   and kernel A's (torch.profiler); each round trip must be exact;
 - where ``build/chip_smoke.json`` of this checkout lists the NTT calls of a
   profiled DCAP and P-256 proof (``ntt_calls``, written by chip_smoke.py's
-  step 7), the same calls replayed on seeded data of their shapes: the
+  step 9), the same calls replayed on seeded data of their shapes: the
   device ms of kernel A and of every other kernel inside them, per proof;
 - kernel A's registers, stack and spills from that checkout's build.
 
