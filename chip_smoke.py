@@ -40,7 +40,10 @@ fails, printing no result, without them or outside a checkout of the repo.
    rise during this phase;
 4. drives the prover: the small circuits of the CPU tests must prove the
    bytes of ``zkdcap_tpu_torch/testdata/reference_proofs.json`` (the JAX
-   package's proofs, SHPLONK and GWC), then a circuit with the k = 18 P-256 ECDSA circuit's
+   package's proofs, SHPLONK and GWC; the keccak toy proofs also through
+   their generated Solidity verifier, compiled by ``evm/solc.py`` and
+   executed by ``evm/interp.py``: accepted, and reverted with a changed
+   instance or a flipped byte), then a circuit with the k = 18 P-256 ECDSA circuit's
    layout (``assets/pinning_k18.json``) goes through keygen and three seeded
    proofs, which must be identical, pass the port's verifier and fail it
    with one byte flipped; every kernel but F must launch here;
@@ -54,6 +57,13 @@ fails, printing no result, without them or outside a checkout of the repo.
    ``zkdcap_tpu_torch/testdata/p256_proof.json``, accepted by ``verify``
    (and a flipped byte rejected), with the native witness evaluator run for
    each; ``assets/p256_proof.hex`` must verify; kernels A-F must launch;
+   then the EVM verifier on the loaded prover: a keccak proof
+   (``create_proof(evm=True)``) equal to the fixture's ``proof_keccak``,
+   ``gen_evm_verifier``, ``compile_solidity`` and ``verify(evm=True)``
+   (accepts; rejects a changed instance and three flipped bytes), and an
+   ``ECDSAProver(multiopen="gwc")`` on the same artifacts whose keccak proof
+   its GWC contract accepts and the SHPLONK contract rejects (equal to the
+   fixture's ``card_gwc_keccak`` once it holds one);
 6. drives this slice's main path, the DCAP prover ``DcapProver(k=17)`` on
    the demo input, in a fresh params dir: keygen (SRS, trace + compile,
    device keygen and the pk's save timed apart; its vk must hold the JAX
@@ -82,7 +92,13 @@ fails, printing no result, without them or outside a checkout of the repo.
    in the report (``ntt_calls``, which ``tools/kernel_ab.py`` replays); then
    ranks the kernels by the device time each loses per proof against its
    bound; then frees the P-256 and DCAP provers;
-10-11. drives the cert-chain and quote prover services,
+10. drives the prover CLI (``zkdcap_tpu_torch.cli``) on the params dirs of
+   steps 5 and 6: in this process ``prove --evm`` (a pk reload and a proof
+   on the card, kernels A-E launched), ``gen-solidity --output`` (step 5's
+   source) and ``verify --evm`` of a flipped proof (exit 1); as processes of
+   their own ``verify --evm`` of the CLI's proof (exit 0), ``gen-calldata``
+   and ``dcap-verify`` of step 6's proof (exit 0);
+11-12. drives the cert-chain and quote prover services,
    ``CertChainProver(k=17, structure=make_intel_demo_chain())`` and
    ``QuoteProver(k=17)`` on ``make_demo_quote()``, each in a fresh params
    dir with a copy of step 6's SRS: keygen (phases timed; its vk must hold
@@ -91,8 +107,8 @@ fails, printing no result, without them or outside a checkout of the repo.
    the fixture's card proof once it holds one, kernels A-E launched in
    each), ``verify`` (and a flipped byte), one profiled proof, the proof's
    hex in the report; each prover is freed after its step;
-12. prints the kernel table as one JSON line (launches of steps 5-8 and
-   10-11, and per cert-chain and quote proof), the card's name and power
+13. prints the kernel table as one JSON line (launches of steps 5-8 and
+   10-12, and per cert-chain and quote proof), the card's name and power
    limit, the seconds at which each step started, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +184,9 @@ PROOF_SEED = b"chip-smoke-k18"
 # holds the key and the 8 u16-packed point planes.
 SORT_SHAPES = {"commit": (5, 18, 12), "msm": (8, 20, 15)}
 SWITCHES = {"rowsort": "ZKDCAP_MSM_ROWSORT", "bitonic": "ZKDCAP_MSM_BITONIC"}
+# where a tampered proof has one byte flipped before the generated EVM
+# verifier executes it (fractions of the proof's length)
+EVM_FLIPS = (0.2, 0.65, 0.95)
 # CUDA functions of a kernel where they are not named <kernel>_kernel (none
 # of kernel F's holds "gather", which gather_ms counts)
 KERNEL_FUNCS = {"bitonic_sort": ("bitonic_tile_kernel", "bitonic_group_kernel",
@@ -648,6 +667,44 @@ def sort_checks(record, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def flipped(proof: bytes, frac: float) -> bytes:
+    bad = bytearray(proof)
+    bad[int(len(bad) * frac)] ^= 1
+    return bytes(bad)
+
+
+def evm_contract(params, vk, instances: list[int], proof: bytes, multiopen: str) -> dict:
+    """Generate the Solidity verifier of `vk`, compile it, and execute it on
+    `proof`: it must accept, and revert on a changed instance and on a byte
+    flipped at each of EVM_FLIPS. Returns the seconds of each part and the
+    byte counts of the source, the bytecode and the calldata."""
+    from zkdcap_tpu_torch.evm.calldata import encode_calldata
+    from zkdcap_tpu_torch.evm.interp import EvmRevert, deploy_and_call
+    from zkdcap_tpu_torch.evm.solc import compile_solidity
+    from zkdcap_tpu_torch.evm.solidity import gen_evm_verifier
+
+    gen_s, src = wall_s(lambda: gen_evm_verifier(params, vk, len(instances), multiopen=multiopen))
+    compile_s, code = wall_s(lambda: compile_solidity(src))
+    calldata = encode_calldata(instances, proof)
+    call_s, ret = wall_s(lambda: deploy_and_call(code, calldata))
+    if ret != b"\x01":
+        raise AssertionError(f"the {multiopen} contract returned {ret.hex()} on a valid proof")
+    rejects = [([instances[0] + 1] + instances[1:], proof)] + [
+        (instances, flipped(proof, f)) for f in EVM_FLIPS]
+    reject_s = []
+    for inst, bad in rejects:
+        t0 = time.perf_counter()
+        try:
+            deploy_and_call(code, encode_calldata(inst, bad))
+        except EvmRevert:
+            reject_s.append(time.perf_counter() - t0)
+        else:
+            raise AssertionError(f"the {multiopen} contract accepts a tampered proof")
+    return {"gen_s": gen_s, "compile_s": compile_s, "call_s": call_s, "reject_s": reject_s,
+            "source_chars": len(src), "bytecode_bytes": len(code),
+            "calldata_bytes": len(calldata)}
+
+
 def prove_phase(say, card: str, dev, srs) -> dict:
     """Step 4: the prover's path, with the launch counts set to 0 first.
     Returns the readings and the launch counts of the whole step."""
@@ -676,9 +733,11 @@ def prove_phase(say, card: str, dev, srs) -> dict:
         res = fn()
         return time.perf_counter() - t0, res
 
-    # (a) the circuits of the CPU tests against the JAX package's proofs
+    # (a) the circuits of the CPU tests against the JAX package's proofs;
+    # the keccak proofs also go through their generated EVM verifier
     fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "reference_proofs.json")
                          .read_text())
+    out["evm"] = {}
     for name, ref in fixture.items():
         circ = REFERENCE_CASES[name][0](tcs)
         if circ.k != ref["k"] or circ.instances != ref["instances"]:
@@ -696,10 +755,20 @@ def prove_phase(say, card: str, dev, srs) -> dict:
                     raise AssertionError(f"{name}/{kind}/{multiopen}: the proof differs from "
                                          "the JAX package's")
                 out["small"][f"{name}/{kind}" + ("/gwc" if multiopen == "gwc" else "")] = t
+                if kind == "keccak":
+                    out["evm"][f"{name}/{multiopen}"] = evm_contract(
+                        params, pk.vk, circ.instances[0], proof, multiopen)
     say(f"prover: {len(out['small'])} small proofs (k = 4 toy under blake2b, poseidon, "
         f"keccak; k = {FLEX_SMALL['k']} flex; SHPLONK and GWC) equal the JAX package's bytes in "
         "testdata/reference_proofs.json; seconds "
         + ", ".join(f"{key} {t:.2f}" for key, t in out["small"].items()))
+    for key, e in out["evm"].items():
+        say(f"prover: the generated EVM verifier of {key} (keccak): source {e['source_chars']} "
+            f"chars in {e['gen_s']:.3f} s, compile_solidity {e['bytecode_bytes']} bytes in "
+            f"{e['compile_s']:.3f} s; deploy_and_call accepts the card's proof "
+            f"({e['calldata_bytes']} calldata bytes) in {e['call_s']:.2f} s and reverts on a "
+            f"changed instance and on a byte flipped at {EVM_FLIPS} of the proof in "
+            + ", ".join(f"{t:.2f}" for t in e["reject_s"]) + f" s ({card})")
 
     # (b) the k = 18 P-256 ECDSA circuit's layout
     pinning = json.loads((ROOT / "assets" / "pinning_k18.json").read_text())
@@ -847,15 +916,96 @@ def service_phase(say, card: str, dev, fixture: dict) -> dict:
         raise AssertionError("verify: the proof, the flipped proof or the golden proof")
     if fixture["k"] != 18 or proof.hex() != fixture["proof"]:
         raise AssertionError("the k=18 proof differs from the JAX package's fixture")
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out["launches"] = dict(_build.launches)
     say(f"service: {len(proofs)} proofs identical ({len(proof)} bytes)"
         + ", equal to the JAX package's k=18 proof in testdata/p256_proof.json"
         + f"; verify accepts it ({out['verify_s']:.2f} s) and assets/p256_proof.hex, rejects "
-        f"byte {len(bad) // 2} flipped; peak device memory {out['peak_gb']:.1f} GB; launches "
-        f"over step 5 {out['launches']} ({card})")
+        f"byte {len(bad) // 2} flipped ({card})")
+    out["evm"], out["evm_source"] = evm_service(say, card, dev, prover, inp, seed, fixture)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = dict(_build.launches)
+    say(f"service: peak device memory {out['peak_gb']:.1f} GB; launches over step 5 "
+        f"{out['launches']} ({card})")
     out["prove_once"] = prove_once
     return out
+
+
+def evm_service(say, card: str, dev, prover, inp, seed: bytes, fixture: dict):
+    """Step 5's EVM half, on the loaded `prover`: a keccak proof under the
+    fixture's seed, equal to the JAX package's ``proof_keccak``; the
+    generated verifier (``gen_evm_verifier``), compiled and executed by
+    ``verify(evm=True)``: it accepts, and rejects a changed instance and a
+    byte flipped at each of EVM_FLIPS; then an ``ECDSAProver(multiopen="gwc")``
+    on the same artifacts makes a keccak GWC proof, which its own contract
+    accepts and the SHPLONK one rejects (equal to ``card_gwc_keccak`` once
+    the fixture holds one). Returns the readings and the SHPLONK source."""
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.evm.calldata import encode_calldata
+    from zkdcap_tpu_torch.evm.solc import compile_solidity
+    from zkdcap_tpu_torch.runtime import ECDSAProver
+
+    out = {}
+    instances = inp.as_instances()
+    before = dict(_build.launches)
+    out["prove_s"], proof = wall_s(lambda: prover.create_proof(
+        inp, evm=True, timing=False, blinding_seed=seed))
+    out["proof_launches"] = launched(before)
+    require_kernels("the keccak P-256 proof", out["proof_launches"])
+    if proof.hex() != fixture["proof_keccak"]:
+        raise AssertionError("the keccak k=18 proof differs from the JAX package's "
+                             "proof_keccak in testdata/p256_proof.json")
+    out["gen_s"], src = wall_s(prover.gen_evm_verifier)
+    out["compile_s"], code = wall_s(lambda: compile_solidity(src))
+    out["verify_s"], ok = wall_s(lambda: prover.verify(instances, proof, evm=True))
+    cached = Path(prover.params_dir) / "evm_verifier_k18_shplonk.bin"
+    if not ok or cached.read_bytes() != code:
+        raise AssertionError("verify(evm=True) rejects the keccak proof, or its cached "
+                             "bytecode is not compile_solidity's")
+    rejects = [([instances[0] + 1] + instances[1:], proof)] + [
+        (instances, flipped(proof, f)) for f in EVM_FLIPS]
+    out["reject_s"] = []
+    for inst, bad in rejects:
+        t, accepted = wall_s(lambda: prover.verify(inst, bad, evm=True))
+        if accepted:
+            raise AssertionError("the generated k=18 verifier accepts a tampered proof")
+        out["reject_s"].append(t)
+    out.update(proof_bytes=len(proof), source_chars=len(src), bytecode_bytes=len(code),
+               calldata_bytes=len(encode_calldata(instances, proof)), proof=proof.hex())
+    say(f"evm: keccak proof {out['prove_s']:.3f} s ({len(proof)} bytes), equal to the JAX "
+        f"package's proof_keccak; gen_evm_verifier {out['gen_s']:.3f} s ({len(src)} chars), "
+        f"compile_solidity {out['compile_s']:.3f} s ({len(code)} bytes); verify(evm=True) "
+        f"executes the contract on {out['calldata_bytes']} calldata bytes and accepts in "
+        f"{out['verify_s']:.2f} s; reverts on a changed instance and on a byte flipped at "
+        f"{EVM_FLIPS} of the proof in " + ", ".join(f"{t:.2f}" for t in out["reject_s"])
+        + f" s ({card})")
+
+    gwc = ECDSAProver(params_dir=prover.params_dir, k=18, multiopen="gwc", device=dev)
+    adopt(gwc, prover)
+    before = dict(_build.launches)
+    out["gwc_prove_s"], gproof = wall_s(lambda: gwc.create_proof(
+        inp, evm=True, timing=False, blinding_seed=seed))
+    out["gwc_proof_launches"] = launched(before)
+    require_kernels("the keccak GWC P-256 proof", out["gwc_proof_launches"])
+    out["gwc_verify_s"], ok = wall_s(lambda: gwc.verify(instances, gproof, evm=True))
+    out["gwc_shplonk_verify_s"], crossed = wall_s(
+        lambda: prover.verify(instances, gproof, evm=True))
+    if not ok or crossed or gwc.verify(instances, proof, evm=True):
+        raise AssertionError("the keccak GWC proof must pass the GWC contract only")
+    held = "card_gwc_keccak" in fixture
+    if held and (fixture["card_gwc_keccak"]["seed"] != fixture["seed"]
+                 or fixture["card_gwc_keccak"]["proof"] != gproof.hex()):
+        raise AssertionError("the keccak GWC proof differs from testdata/p256_proof.json's "
+                             "card_gwc_keccak")
+    gcode = (Path(prover.params_dir) / "evm_verifier_k18_gwc.bin").read_bytes()
+    out.update(gwc_proof_bytes=len(gproof), gwc_bytecode_bytes=len(gcode),
+               gwc={"seed": fixture["seed"], "proof": gproof.hex()})
+    say(f"evm gwc: ECDSAProver(multiopen='gwc') on the same artifacts: keccak proof "
+        f"{out['gwc_prove_s']:.3f} s ({len(gproof)} bytes), "
+        + ("equal to" if held else "not yet in")
+        + " testdata/p256_proof.json's card_gwc_keccak; its contract (generated, compiled "
+        f"and cached by verify: {len(gcode)} bytes) accepts it in {out['gwc_verify_s']:.2f} s, "
+        f"the SHPLONK contract rejects it in {out['gwc_shplonk_verify_s']:.2f} s (and the GWC "
+        f"contract the SHPLONK proof); launches {out['gwc_proof_launches']} ({card})")
+    return out, src
 
 
 def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
@@ -940,6 +1090,7 @@ def dcap_phase(say, card: str, dev, fixture: dict) -> dict:
         raise AssertionError("the DCAP proof differs from the JAX package's fixture")
     out["runs"] = runs
     out["proof_bytes"] = len(proof)
+    out["proof"] = proof.hex()
     out["verify_s"], ok = wall_s(lambda: prover.verify(proof))
     bad = bytearray(proof)
     bad[len(bad) // 2] ^= 1
@@ -981,7 +1132,7 @@ def require_kernels(what: str, launches: dict) -> None:
 
 
 def circuit_service_phase(say, card: str, dev, name: str, fixture: dict, srs_dir: Path) -> dict:
-    """Steps 10-11: the cert-chain or quote prover service on the structure
+    """Steps 11-12: the cert-chain or quote prover service on the structure
     input of its fixture, in a fresh params dir that holds a copy of the
     DCAP step's k = 17 SRS, with the launch counts set to 0 first: keygen
     (its vk must be the JAX keygen's of the fixture), the tape, a warm-up
@@ -1212,6 +1363,109 @@ def checkpoint_phase(say, card: str, dev, fixture: dict, loaded) -> dict:
         f"{name} " + ", ".join(f"{r['s']:.2f} s {r['bytes'] / 1e6:.0f} MB" for r in rs)
         for name, rs in sorted(out["saves"].items())) + f"; peak device memory "
         f"{out['peak_gb']:.1f} GB ({card})")
+    return out
+
+
+def run_cli(argv: list[str]) -> tuple[int, str]:
+    """``zkdcap_tpu_torch.cli.main(argv)`` in this process: its exit code (0
+    when it returns) and what it printed."""
+    import contextlib
+    import io
+
+    from zkdcap_tpu_torch import cli
+
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code
+    return code, buf.getvalue()
+
+
+def cli_subprocess(argv: list[str]) -> tuple[float, int, str]:
+    """``python -m zkdcap_tpu_torch.cli`` as a process of its own, from the
+    checkout's root: its seconds, exit code and standard output."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zkdcap_tpu_torch.cli", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"cli {argv[2:4]} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return time.perf_counter() - t0, proc.returncode, proc.stdout
+
+
+def cli_phase(say, card: str, fixture: dict, evm_source: str, dcap_proof: str) -> dict:
+    """Step 10: the prover CLI on the params dirs of steps 5 and 6, with the
+    launch counts set to 0 first. In this process, so that the counts see
+    it: ``prove --evm`` (a pk reload and a keccak proof on the card, A-E
+    launched), ``gen-solidity --output`` (equal to step 5's source) and
+    ``verify --evm`` of a flipped proof (exit 1, ``INVALID``). As processes
+    of their own: ``verify --evm`` of the CLI's proof (exit 0, ``valid``),
+    ``gen-calldata`` (equal to ``encode_calldata`` of it) and
+    ``dcap-verify`` of step 6's proof (exit 0)."""
+    from zkdcap_tpu_torch import _build
+    from zkdcap_tpu_torch.circuits.p256_ecdsa import ECDSAInput
+    from zkdcap_tpu_torch.evm.calldata import encode_calldata
+
+    work = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    p256 = ["--params-dir", str(ROOT / "build" / "smoke_params")]
+    ecdsa = ["--msghash", "0x" + fixture["msghash"], "--signature", "0x" + fixture["signature"],
+             "--pubkey", "0x" + fixture["pubkey"]]
+    instances = ECDSAInput.from_hex(fixture["msghash"], fixture["signature"],
+                                    fixture["pubkey"]).as_instances()
+    out = {"s": {}}
+    _build.reset_launches()
+
+    proof_file = work / "proof.hex"
+    out["s"]["prove --evm"], (code, text) = wall_s(
+        lambda: run_cli([*p256, "prove", "--evm", *ecdsa, "--output", str(proof_file)]))
+    proof = bytes.fromhex(proof_file.read_text().removeprefix("0x"))
+    if code != 0 or text.strip() != f"proof written to {proof_file} ({len(proof)} bytes)":
+        raise AssertionError(f"cli prove --evm: exit {code}, printed {text!r}")
+    out["prove_launches"] = dict(_build.launches)
+    require_kernels("cli prove --evm", out["prove_launches"])
+
+    sol_file = work / "Verifier.sol"
+    out["s"]["gen-solidity"], (code, text) = wall_s(
+        lambda: run_cli([*p256, "gen-solidity", "--output", str(sol_file)]))
+    if code != 0 or text.strip() != f"verifier written to {sol_file}" \
+            or sol_file.read_text() != evm_source:
+        raise AssertionError("cli gen-solidity: not step 5's source")
+
+    bad_file = work / "flipped.hex"
+    bad_file.write_text("0x" + flipped(proof, EVM_FLIPS[1]).hex())
+    out["s"]["verify --evm (flipped)"], (code, text) = wall_s(
+        lambda: run_cli([*p256, "verify", "--evm", "--proof", str(bad_file), *ecdsa]))
+    if code != 1 or text.strip() != "INVALID":
+        raise AssertionError(f"cli verify --evm of a flipped proof: exit {code}, {text!r}")
+    out["launches"] = dict(_build.launches)
+
+    t, code, text = cli_subprocess([*p256, "verify", "--evm", "--proof", str(proof_file),
+                                    *ecdsa])
+    out["s"]["verify --evm (process)"] = t
+    if code != 0 or text.strip() != "valid":
+        raise AssertionError(f"cli verify --evm of its own proof: exit {code}, {text!r}")
+    t, code, text = cli_subprocess([*p256, "gen-calldata", "--proof", str(proof_file), *ecdsa])
+    out["s"]["gen-calldata (process)"] = t
+    if code != 0 or text.strip() != "0x" + encode_calldata(instances, proof).hex():
+        raise AssertionError("cli gen-calldata: not encode_calldata of the proof")
+    dcap_file = work / "dcap_proof.hex"
+    dcap_file.write_text("0x" + dcap_proof)
+    t, code, text = cli_subprocess(["--params-dir", str(ROOT / "build" / "smoke_params_dcap"),
+                                    "dcap-verify", "--proof", str(dcap_file)])
+    out["s"]["dcap-verify (process)"] = t
+    if code != 0 or text.strip() != "valid":
+        raise AssertionError(f"cli dcap-verify of step 6's proof: exit {code}, {text!r}")
+    out["proof_bytes"] = len(proof)
+    say("cli: " + "; ".join(f"{c} {t:.1f} s" for c, t in out["s"].items())
+        + f": prove --evm reloaded the pk and proved on the card ({len(proof)} bytes, "
+        f"launches {out['prove_launches']}), its proof passes verify --evm in a process of its "
+        "own, gen-calldata prints encode_calldata of it, gen-solidity writes step 5's source, "
+        "a flipped byte exits 1 with INVALID, dcap-verify accepts step 6's proof "
+        f"({card})")
     return out
 
 
@@ -1592,6 +1846,7 @@ def main() -> int:
     mark("5 p256")
     fixture = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json").read_text())
     service = service_phase(say, card, dev, fixture)
+    evm_source = service.pop("evm_source")
     for name in KERNELS:
         if name != "butterfly" and service["launches"][name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the prover service's path")
@@ -1789,15 +2044,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10-11. the cert-chain and quote prover services ---------------------------
+    # -- 10. the prover CLI on the params dirs of steps 5 and 6 -------------------
+    mark("10 cli")
+    cli = cli_phase(say, card, fixture, evm_source, dcap["proof"])
+
+    # -- 11-12. the cert-chain and quote prover services ---------------------------
     circuit_steps = {}
-    for step, name in zip((10, 11), CIRCUIT_SERVICES):
+    for step, name in zip((11, 12), CIRCUIT_SERVICES):
         mark(f"{step} {name}")
         fix = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / f"{name}_vk.json")
                          .read_text())
         circuit_steps[name] = circuit_service_phase(say, card, dev, name, fix,
                                                     ROOT / "build" / "smoke_params_dcap")
-    mark("12 table")
+    mark("13 table")
 
     # the device time each kernel loses per proof against its bound: its
     # profiled device ms times (1 - bound/kernel_ms) at its main row's shape
@@ -1834,11 +2093,12 @@ def main() -> int:
     for name, row in kernels.items():
         base = name.split("/")[0]
         # the main paths: the P-256 service (step 5), the DCAP prover (step 6),
-        # GWC (step 7), the checkpoints (step 8) and the cert-chain and quote
-        # services (steps 10-11)
+        # GWC (step 7), the checkpoints (step 8), the CLI (step 10) and the
+        # cert-chain and quote services (steps 11-12)
         row["launches"] = (service["launches"][base] + dcap["launches"][base]
                            + sum(c["launches"][base] for c in circuit_steps.values())
-                           + gwc["launches"][base] + ckpt["launches"][base])
+                           + gwc["launches"][base] + ckpt["launches"][base]
+                           + cli["launches"][base])
         row["launches_service"] = service["launches"][base]
         row["launches_dcap"] = dcap["launches"][base]
         for cname, c in circuit_steps.items():
@@ -1846,6 +2106,7 @@ def main() -> int:
             row[f"launches_per_{cname}_proof"] = c["runs"][-1]["launches"][base]
         row["launches_gwc"] = gwc["launches"][base]
         row["launches_checkpoint"] = ckpt["launches"][base]
+        row["launches_cli"] = cli["launches"][base]
         row["launches_engine"] = totals[base]
         row["launches_layout_prover"] = prover["launches"][base]
     for name in KERNELS:
@@ -1855,7 +2116,7 @@ def main() -> int:
     report.update({"kernel_checks": list(kernels.values()), "phases": phases,
                    "launch_totals": totals, "prover": prover, "service": service,
                    "dcap": dcap, "breakdown": breakdown, **circuit_steps, "gwc": gwc,
-                   "checkpoint": ckpt, "step_start_s": step_start,
+                   "checkpoint": ckpt, "cli": cli, "step_start_s": step_start,
                    "total_s": time.perf_counter() - T_START})
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     say(f"chip_smoke: {report['total_s']:.0f} s from the start of the script; steps started at "

@@ -4,8 +4,8 @@ Mirrors ``tests/test_gwc.py`` on the port's CPU path (prove, verify, reject;
 the GWC and SHPLONK wire formats are distinct), and holds the port's GWC
 proofs of every ``REFERENCE_CASES`` circuit to the JAX package's bytes in
 ``testdata/reference_proofs.json`` (``gwc_proofs``), which the JAX verifier
-must accept. The EVM case of ``tests/test_gwc.py`` waits for the port's
-``evm/`` (ROADMAP.md queue 1).
+must accept. Its EVM case, as in ``tests/test_gwc.py``: the port's keccak
+GWC proof of the toy circuit executed by its generated GWC contract.
 """
 
 import json
@@ -130,6 +130,31 @@ def test_unknown_multiopen_raises(port):
         _prove(port, "toy", multiopen="kzg")
     with pytest.raises(ValueError, match="multiopen"):
         verify_proof(params, pk.vk, circ.instances, b"", multiopen="kzg")
+
+
+def test_gwc_evm_verifier_executes(port):
+    """GWC Solidity emission + EVM execution: the contract accepts the
+    port's keccak GWC proof and reverts on a changed instance and on
+    flipped bytes."""
+    from zkdcap_tpu_torch.evm.calldata import encode_calldata
+    from zkdcap_tpu_torch.evm.interp import EvmRevert, deploy_and_call
+    from zkdcap_tpu_torch.evm.solc import compile_solidity
+    from zkdcap_tpu_torch.evm.solidity import gen_evm_verifier
+
+    circ, params, pk, _ = port("toy")
+    inst = circ.instances[0]
+    proof = _prove(port, "toy", "keccak")
+    assert verify_proof(params, pk.vk, circ.instances, proof, transcript_kind="keccak",
+                        multiopen="gwc")
+    code = compile_solidity(gen_evm_verifier(params, pk.vk, num_instances=1, multiopen="gwc"))
+    assert deploy_and_call(code, encode_calldata(inst, proof)) == b"\x01"
+    for frac in (0.1, 0.5, 0.9):
+        bad = bytearray(proof)
+        bad[int(len(bad) * frac)] ^= 1
+        with pytest.raises(EvmRevert):
+            deploy_and_call(code, encode_calldata(inst, bytes(bad)))
+    with pytest.raises(EvmRevert):
+        deploy_and_call(code, encode_calldata([inst[0] + 1], proof))
 
 
 @pytest.mark.parametrize("name,kind", PROOFS)

@@ -13,19 +13,23 @@ so that it cannot drift from the reference.
 ``zkdcap_tpu_torch/testdata/p256_proof.json`` holds the JAX package's proof
 of the P-256 ECDSA circuit on the reference test vector, made through the
 steps of ``zkdcap_tpu.runtime.prover.ECDSAProver.create_proof`` under a fixed
-blinding seed (``p256_fixture``). ``chip_smoke.py`` holds the port's proof of
-the same circuit to it; regenerating it takes the JAX package's CPU path far
-beyond tier-1's budget, so its test is marked ``slow``.
+blinding seed (``p256_fixture``), under the blake2b transcript (``proof``)
+and under the keccak transcript of the EVM verifier (``proof_keccak``).
+``chip_smoke.py`` holds the port's proofs of the same circuit to them;
+regenerating them takes the JAX package's CPU path far beyond tier-1's
+budget, so their tests are marked ``slow``.
 
 Regenerate the fixtures after a deliberate change of the proof format with
 ``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py`` (the small
 proofs) and ``JAX_PLATFORMS=cpu python tests/test_torch_reference_proofs.py
-p256`` (the P-256 proof); ``... dcap``, ``... cert_chain`` and ``... quote``
+p256`` (the P-256 proof) and ``... p256_evm`` (only its keccak proof,
+``proof_keccak``); ``... dcap``, ``... cert_chain`` and ``... quote``
 make the DCAP fixture and the JAX keygen's vks of the cert-chain and quote
 circuits (``testdata/{cert_chain,quote}_vk.json``), and ``... card
 build/chip_smoke.json`` adds the card's proofs of a ``chip_smoke.py`` run
-to those three files (``CARD_KEYS``), which later card runs and the CPU
-tests hold to.
+to those three files and the card's GWC keccak proof of the P-256 circuit to
+``p256_proof.json`` (``CARD_KEYS``), which later card runs and the CPU tests
+hold to.
 """
 
 import contextlib
@@ -65,7 +69,9 @@ CIRCUIT_FIXTURES = {
 }
 # keys that the card's runs add to a fixture (its proofs there, with their
 # seeds); the JAX package's CPU path does not make them
-CARD_KEYS = ("card", "card_gwc")
+CARD_KEYS = ("card", "card_gwc", "card_gwc_keccak")
+# the P-256 fixture's keys that ``... p256_evm`` writes: the keccak proof
+P256_EVM_KEYS = ("proof_keccak", "seconds_keccak")
 
 
 def reference_fixture(srs_dir: str) -> dict:
@@ -144,10 +150,11 @@ def _eager_quotient():
 
 
 def p256_fixture(params_dir: str, k: int = P256_K, lookup_bits: int = P256_LOOKUP_BITS,
-                 seed: bytes = P256_SEED) -> dict:
+                 seed: bytes = P256_SEED, evm: bool = False) -> dict:
     """The JAX package's proof of the reference test vector, through the
     steps of ``ECDSAProver.create_proof`` (keygen, tape replay, witness fill,
-    encode, ``create_proof``) with ``blinding_seed`` passed to the prover,
+    encode, ``create_proof``; ``evm`` proves under the keccak transcript, as
+    ``create_proof(evm=True)`` does) with ``blinding_seed`` passed to the prover,
     the commitments taken from the dev tau (``_dev_tau_commitments``) and
     the quotient evaluated op by op (``_eager_quotient``). At
     k = 18 the keygen's commitments must equal ``assets/vk_k18.json``, which
@@ -180,12 +187,12 @@ def p256_fixture(params_dir: str, k: int = P256_K, lookup_bits: int = P256_LOOKU
         instances = [[int.from_bytes(raw[c].tobytes(), "little") for c in sctx.instance_cells]]
         assert instances[0] == inp.as_instances()
         adv = jmont.to_mont(J_FR, jnp.asarray(limbs.astype(np.uint32)))
+        kind = "keccak" if evm else prover.transcript_kind
         proof = j_create_proof(prover._params, pk, [adv[i] for i in range(adv.shape[0])],
-                               instances, JTranscriptWriter(prover.transcript_kind),
-                               blinding_seed=seed)
-    assert j_verify_proof(prover._params, pk.vk, instances, proof)
+                               instances, JTranscriptWriter(kind), blinding_seed=seed)
+    assert j_verify_proof(prover._params, pk.vk, instances, proof, transcript_kind=kind)
     return {"k": k, "lookup_bits": lookup_bits, "seed": seed.decode(),
-            "transcript": prover.transcript_kind, "msghash": REF_MSGHASH, "signature": REF_SIG,
+            "transcript": kind, "msghash": REF_MSGHASH, "signature": REF_SIG,
             "pubkey": REF_PUBKEY, "instances": instances,
             "proof": proof.hex(), "seconds": round(time.perf_counter() - t0, 1)}
 
@@ -278,9 +285,10 @@ def add_card_proofs(report: dict) -> None:
     """Write the card's proofs from a ``chip_smoke.py`` report
     (``build/chip_smoke.json``) into the fixtures, with their seeds: the
     cert-chain and quote proofs as ``card``, the GWC DCAP proof as
-    ``card_gwc``."""
+    ``card_gwc``, the keccak GWC P-256 proof as ``card_gwc_keccak``."""
     targets = [(CIRCUIT_FIXTURES[name], "card", report[name]) for name in CIRCUIT_FIXTURES]
     targets.append((DCAP_FIXTURE, "card_gwc", report["gwc"]))
+    targets.append((P256_FIXTURE, "card_gwc_keccak", report["service"]["evm"]["gwc"]))
     for path, key, step in targets:
         fixture = json.loads(path.read_text())
         fixture[key] = {"seed": step["seed"], "proof": step["proof"]}
@@ -300,8 +308,16 @@ def test_fixture_is_current(tmp_path):
 def test_p256_fixture_is_current(tmp_path):
     want = json.loads(P256_FIXTURE.read_text())
     got = p256_fixture(str(tmp_path), want["k"], want["lookup_bits"], want["seed"].encode())
-    assert {k: v for k, v in got.items() if k != "seconds"} == \
-        {k: v for k, v in want.items() if k != "seconds"}
+    assert _without(got, ("seconds",)) == _without(want, ("seconds",) + P256_EVM_KEYS + CARD_KEYS)
+
+
+@pytest.mark.slow
+def test_p256_evm_fixture_is_current(tmp_path):
+    want = json.loads(P256_FIXTURE.read_text())
+    got = p256_fixture(str(tmp_path), want["k"], want["lookup_bits"], want["seed"].encode(),
+                       evm=True)
+    assert got["transcript"] == "keccak" and got["instances"] == want["instances"]
+    assert got["proof"] == want["proof_keccak"]
 
 
 @pytest.mark.slow
@@ -337,8 +353,19 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["p256"]:
             k = int(sys.argv[2]) if len(sys.argv) > 2 else P256_K
             fixture = p256_fixture(tmp, k, min(P256_LOOKUP_BITS, k - 1))
+            if P256_FIXTURE.exists():  # keep the keccak and the card's proofs
+                old = json.loads(P256_FIXTURE.read_text())
+                fixture.update((key, old[key]) for key in P256_EVM_KEYS + CARD_KEYS if key in old)
             P256_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
             print(f"wrote {P256_FIXTURE} in {fixture['seconds']} s")
+        elif sys.argv[1:2] == ["p256_evm"]:
+            fixture = json.loads(P256_FIXTURE.read_text())
+            got = p256_fixture(tmp, fixture["k"], fixture["lookup_bits"],
+                               fixture["seed"].encode(), evm=True)
+            assert got["instances"] == fixture["instances"]
+            fixture["proof_keccak"], fixture["seconds_keccak"] = got["proof"], got["seconds"]
+            P256_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")
+            print(f"wrote proof_keccak into {P256_FIXTURE} in {got['seconds']} s")
         elif sys.argv[1:2] == ["dcap"]:
             fixture = dcap_fixture(tmp)
             DCAP_FIXTURE.write_text(json.dumps(fixture, indent=1) + "\n")

@@ -6,10 +6,15 @@ prover whose light verifier path (``load_vk`` + ``verify``, host only)
 accepts the committed golden proof ``assets/p256_proof.hex`` for the
 reference test vector and rejects it with one instance changed, as
 ``tests/test_golden_proof.py`` does for the JAX package, and accepts the
-JAX package's seeded proof in ``testdata/p256_proof.json``. Options the
-port does not have yet raise ``NotImplementedError``.
+JAX package's seeded proof in ``testdata/p256_proof.json``. The EVM half:
+``gen_evm_verifier`` gives the JAX ``ECDSAProver``'s source on the same
+params, ``verify(evm=True)`` executes the generated contract and accepts the
+JAX package's keccak proof (``proof_keccak``), and the bytecode cached in the
+params dir is the JAX package's file. ``shards > 1`` (not ported yet) raises
+``NotImplementedError``.
 """
 
+import json
 import shutil
 from pathlib import Path
 
@@ -32,6 +37,25 @@ def prover(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def jax_prover(tmp_path_factory):
+    """The JAX package's ``ECDSAProver`` on a params dir of its own holding
+    the same vk and pinning."""
+    from zkdcap_tpu.runtime.prover import ECDSAProver as JECDSAProver
+
+    params = tmp_path_factory.mktemp("jax_params")
+    shutil.copy(ASSETS / "vk_k18.json", params / "vk_k18.json")
+    shutil.copy(ASSETS / "pinning_k18.json", params / "pinning.json")
+    return JECDSAProver(params_dir=str(params), k=18)
+
+
+@pytest.fixture(scope="module")
+def keccak_fixture():
+    fixture = json.loads((Path(__file__).resolve().parent.parent / "zkdcap_tpu_torch"
+                          / "testdata" / "p256_proof.json").read_text())
+    return fixture["instances"][0], bytes.fromhex(fixture["proof_keccak"])
+
+
+@pytest.fixture(scope="module")
 def golden():
     proof = bytes.fromhex((ASSETS / "p256_proof.hex").read_text().strip().removeprefix("0x"))
     return ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY).as_instances(), proof
@@ -49,8 +73,6 @@ def test_fixture_proof_verifies(prover):
     """The JAX package's seeded k=18 proof of the reference vector
     (``testdata/p256_proof.json``, which the port's proof on the card must
     equal) passes the port's verifier."""
-    import json
-
     fixture = json.loads((Path(__file__).resolve().parent.parent / "zkdcap_tpu_torch"
                           / "testdata" / "p256_proof.json").read_text())
     assert fixture["k"] == prover.k
@@ -69,15 +91,40 @@ def test_golden_proof_rejects_changed_instance(prover, golden):
     assert not prover.verify(instances, bytes(flipped))
 
 
-def test_unported_options_raise(prover, golden):
-    instances, proof = golden
+def test_unported_options_raise(prover):
     inp = ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.verify(instances, proof, evm=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.gen_evm_verifier()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         prover.create_proof(inp, shards=2)
+
+
+def test_gen_evm_verifier_equals_reference(prover, jax_prover):
+    src = prover.gen_evm_verifier()
+    assert src == jax_prover.gen_evm_verifier()
+    assert prover._pk is None  # the vk and the host G2 points only
+
+
+def test_evm_verify_accepts_keccak_fixture(prover, keccak_fixture):
+    """``verify(evm=True)`` compiles the contract, caches its bytecode and
+    executes it: the JAX package's keccak proof passes, the same proof with
+    one instance changed does not, and the blake2b proof (another wire
+    format) does not."""
+    instances, proof = keccak_fixture
+    assert prover.verify(instances, proof, evm=True)
+    bad = list(instances)
+    bad[3] ^= 1
+    assert not prover.verify(bad, proof, evm=True)
+    golden = bytes.fromhex((ASSETS / "p256_proof.hex").read_text().strip().removeprefix("0x"))
+    assert not prover.verify(instances, golden, evm=True)
+
+
+def test_evm_bytecode_cache_is_reference_file(prover, jax_prover):
+    """The cached ``evm_verifier_k18_shplonk.bin`` holds the JAX package's
+    bytes, under its name."""
+    port_file = Path(prover.params_dir) / "evm_verifier_k18_shplonk.bin"
+    code = prover._evm_bytecode()
+    assert port_file.read_bytes() == code
+    assert jax_prover._evm_bytecode() == code
+    assert (Path(jax_prover.params_dir) / port_file.name).read_bytes() == code
 
 
 def test_artifact_paths_match_reference(prover):

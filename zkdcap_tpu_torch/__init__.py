@@ -14,7 +14,11 @@ host verify) over copies of the host circuit stack (``chips``, ``circuits``,
 MSM's opt-in bitonic sorts (``utils.device_sort``). Slice 4 is the DCAP
 k = 17 prover, ``runtime.DcapProver`` over the generic ``CircuitProver``,
 with the SHA-256 and base64 chips, ``circuits.dcap`` and ``plonk.mock``, and
-the flat radix-2 NTT (above 2^22, or under ``ZKDCAP_NO_FOUR_STEP``). The JAX package
+the flat radix-2 NTT (above 2^22, or under ``ZKDCAP_NO_FOUR_STEP``). Slice 8
+adds the cert-chain and quote services, GWC (``commit.gwc``) and proof
+checkpoints (``plonk.checkpoint``); slice 9 the EVM verifier (``evm``: the
+Solidity generator, its subset compiler and the interpreter that executes
+it), ``config`` and the prover CLI (``python -m zkdcap_tpu_torch.cli``). The JAX package
 ``zkdcap_tpu`` is the reference it is held against; this package imports
 neither it nor JAX.
 

@@ -6,7 +6,10 @@ deterministic layout) and ``tape_k{k}.npz`` (the recorded witness tape) in
 the JAX package's formats, so a params dir written by either package loads
 in the other; ``create_proof`` replays the tape natively against the frozen
 pinning and proves on the card (or on the CPU with ``device="cpu"``) with
-the chosen transcript (blake2b native / keccak EVM). ``verify`` is host-only.
+the chosen transcript (blake2b native / keccak EVM). ``verify`` is host-only;
+``verify(evm=True)`` compiles the generated Solidity verifier
+(``gen_evm_verifier``, cached as ``evm_verifier_k{k}_{multiopen}.bin`` in the
+params dir) and executes it on the proof's calldata (``evm/``).
 
 The circuit structure is witness-independent, so keygen traces a fixed
 valid sample signature; proofs replay the tape with the real input.
@@ -16,7 +19,6 @@ valid sample signature; proofs replay the tape with the real input.
 dir and resumes an interrupted proof (``plonk/checkpoint.py``).
 
 Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md:
-``verify(evm=True)`` and ``gen_evm_verifier`` (the ``evm/`` package),
 ``create_proof(shards > 1)`` (``parallel/``).
 """
 
@@ -278,9 +280,11 @@ class ECDSAProver:
         if self_verify is None:
             self_verify = os.environ.get("ZKDCAP_SELF_VERIFY", "") == "1"
         if self_verify:
+            # prove-then-verify (base.rs:214-247): the evm path compiles and
+            # executes the generated Solidity verifier
             t = time.perf_counter()
             assert self.verify(instances[0], proof, evm=evm), "self-verify failed"
-            _p("self-verify", t)
+            _p("self-verify" + (" (evm executed)" if evm else ""), t)
         return proof
 
     def verifier_params(self) -> ParamsKZG:
@@ -297,14 +301,48 @@ class ECDSAProver:
         return ParamsKZG(srs=srs)
 
     def gen_evm_verifier(self) -> str:
-        """Solidity verifier source for this circuit (base.rs:251-271)."""
-        raise _not_ported("gen_evm_verifier", "slice 9: the evm/ package")
+        """Solidity verifier source for this circuit (base.rs:251-271).
+        Needs only the vk + host G2 points — never loads the pk arrays."""
+        from ..evm.solidity import gen_evm_verifier
+
+        vk = self.load_vk()
+        return gen_evm_verifier(self.verifier_params(), vk, num_instances=15,
+                                multiopen=self.multiopen)
+
+    def _evm_bytecode(self) -> bytes:
+        """Runtime bytecode of the generated verifier, cached per vk under
+        params_dir (the reference re-runs solc each time, base.rs:218; the
+        cache keeps `verify --evm` interactive)."""
+        from ..evm.solc import compile_solidity
+
+        path = os.path.join(self.params_dir, f"evm_verifier_k{self.k}_{self.multiopen}.bin")
+        if os.path.exists(path):
+            try:
+                with open(path, "rb") as f:
+                    return f.read()
+            except OSError:
+                pass
+        code = compile_solidity(self.gen_evm_verifier())
+        os.makedirs(self.params_dir, exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(code)
+        return code
 
     def verify(self, inp_instances: list[int], proof: bytes, evm: bool = False) -> bool:
-        """Host verify against the vk of the params dir. evm=True (executing
-        the generated Solidity verifier) raises until evm/ is ported."""
+        """Host verify against the vk of the params dir. evm=True compiles
+        the generated Solidity verifier and executes it on the proof
+        calldata, like the reference's verify path (bin/src/main.rs:233-238:
+        gen_evm_verifier -> compile_solidity -> deploy_and_call)."""
         if evm:
-            raise _not_ported("verify(evm=True)", "slice 9: the evm/ package")
+            from ..evm.calldata import encode_calldata
+            from ..evm.interp import EvmRevert, deploy_and_call
+
+            code = self._evm_bytecode()
+            try:
+                out = deploy_and_call(code, encode_calldata(inp_instances, proof))
+            except EvmRevert:
+                return False
+            return out == b"\x01"
         vk = self.load_vk()
         return verify_proof(self.verifier_params(), vk, [inp_instances], proof,
                             transcript_kind=self.transcript_kind,
