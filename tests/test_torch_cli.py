@@ -7,7 +7,8 @@ JAX CLI's calldata; ``gen-solidity --output`` writes the JAX CLI's file;
 ``verify --evm`` executes the generated contract on the JAX package's
 keccak proof of the reference vector (``proof_keccak`` of
 ``testdata/p256_proof.json``): ``valid`` and exit 0, and ``INVALID`` and
-exit 1 with a byte flipped; ``--shards 2`` raises the not-ported error;
+exit 1 with a byte flipped; ``--shards 2`` reaches the provers, which prove
+over a mesh of two CPU shards;
 without ``--device`` on a machine with no card a proving command raises
 instead of running on the CPU; the ``--input`` JSON readers of the
 cert-chain and quote commands give the JAX CLI's inputs.
@@ -132,11 +133,31 @@ def test_verify_evm_executes_the_contract(params_dir, tmp_path, capsys):
     assert (params_dir / "evm_verifier_k18_shplonk.bin").is_file()
 
 
-def test_shards_raise_not_ported(params_dir, capsys):
+def test_shards_raise_not_ported(params_dir, capsys, monkeypatch):
+    """``--shards 2`` reaches the provers as ``shards=2``: each proves over a
+    mesh of two CPU shards (the preparation and the proof stubbed)."""
+    from types import SimpleNamespace
+
+    from zkdcap_tpu_torch.parallel import Mesh
+    from zkdcap_tpu_torch.runtime import circuit_prover
+    from zkdcap_tpu_torch.runtime import prover as runtime_prover
+
+    meshes = []
+    pk = SimpleNamespace(vk=SimpleNamespace(transcript_kind="blake2b"))
+    for module, cls in ((runtime_prover, runtime_prover.ECDSAProver),
+                        (circuit_prover, circuit_prover.CircuitProver)):
+        monkeypatch.setattr(cls, "prepare",
+                            lambda self, inp, timing=False: (pk, [], [[0] * 15]))
+        monkeypatch.setattr(cls, "params", lambda self: None)
+        monkeypatch.setattr(module, "create_proof",
+                            lambda *args, mesh=None, **kw: meshes.append(mesh) or b"\xab")
     for argv in (["prove", *ECDSA], ["dcap-prove"]):
-        with pytest.raises(NotImplementedError, match="slice 10: parallel/"):
-            cli.main(["--device", "cpu", "--params-dir", str(params_dir), "--shards", "2",
-                      *argv])
+        code, out, _ = _run(cli.main, ["--device", "cpu", "--params-dir", str(params_dir),
+                                       "--shards", "2", *argv], capsys)
+        assert (code, out) == (0, "0xab\n")
+    assert len(meshes) == 2
+    for mesh in meshes:
+        assert isinstance(mesh, Mesh) and mesh.devices == [torch.device("cpu")] * 2
 
 
 def test_no_device_raises_without_a_card(tmp_path):

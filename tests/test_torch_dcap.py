@@ -184,7 +184,21 @@ def test_card_gwc_proof_verifies(tmp_path, jax_side, port_side, fixture):
         assert not shplonk.verify(proof), sub
 
 
-def test_unported_options_raise(tmp_path):
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """``shards=2`` on a CPU DCAP service proves over a mesh of two CPU
+    shards (the preparation and the proof stubbed: the mesh is checked)."""
+    from types import SimpleNamespace
+
+    from zkdcap_tpu_torch.parallel import Mesh
+    from zkdcap_tpu_torch.runtime import circuit_prover
+
+    meshes = []
+    pk = SimpleNamespace(vk=SimpleNamespace(transcript_kind="blake2b"))
+    monkeypatch.setattr(DcapProver, "prepare", lambda self, inp, timing=False: (pk, [], []))
+    monkeypatch.setattr(DcapProver, "params", lambda self: None)
+    monkeypatch.setattr(circuit_prover, "create_proof",
+                        lambda *args, mesh=None, **kw: meshes.append(mesh) or b"\x01")
     prover = DcapProver(params_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.create_proof(tdcap.load_demo_input(), shards=2)
+    assert prover.create_proof(tdcap.load_demo_input(), shards=2, timing=False) == b"\x01"
+    (mesh,) = meshes
+    assert isinstance(mesh, Mesh) and mesh.devices == [torch.device("cpu")] * 2

@@ -130,8 +130,9 @@ def test_carried_over_pk_proves_reference_bytes(keys):
 
 
 def test_unported_options_raise(keys):
+    """A mesh must be a ``parallel.Mesh``."""
     _, _, tc, params, pk = keys("toy")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         create_proof(params, pk, [], tc.instances, TranscriptWriter(), device="cpu",
                      mesh=object())
 

@@ -62,6 +62,8 @@ def test_import_pulls_in_no_jax():
         "import zkdcap_tpu_torch.evm, zkdcap_tpu_torch.evm.calldata\n"
         "import zkdcap_tpu_torch.evm.interp, zkdcap_tpu_torch.evm.solc\n"
         "import zkdcap_tpu_torch.evm.solidity, zkdcap_tpu_torch.config, zkdcap_tpu_torch.cli\n"
+        "import zkdcap_tpu_torch.parallel, zkdcap_tpu_torch.parallel.dryrun\n"
+        "import zkdcap_tpu_torch.plonk.row_sharder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'zkdcap_tpu' or m.startswith('zkdcap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -10,8 +10,8 @@ JAX package's seeded proof in ``testdata/p256_proof.json``. The EVM half:
 ``gen_evm_verifier`` gives the JAX ``ECDSAProver``'s source on the same
 params, ``verify(evm=True)`` executes the generated contract and accepts the
 JAX package's keccak proof (``proof_keccak``), and the bytecode cached in the
-params dir is the JAX package's file. ``shards > 1`` (not ported yet) raises
-``NotImplementedError``.
+params dir is the JAX package's file. ``shards=2`` on a CPU service proves
+over a mesh of two CPU shards.
 """
 
 import json
@@ -19,6 +19,7 @@ import shutil
 from pathlib import Path
 
 import pytest
+import torch
 
 from zkdcap_tpu_torch.circuits.p256_ecdsa import ECDSAInput
 from zkdcap_tpu_torch.runtime import ECDSAProver
@@ -91,10 +92,25 @@ def test_golden_proof_rejects_changed_instance(prover, golden):
     assert not prover.verify(instances, bytes(flipped))
 
 
-def test_unported_options_raise(prover):
+def test_unported_options_raise(prover, monkeypatch):
+    """``shards=2`` on a CPU service proves over a mesh of two CPU shards
+    (the preparation and the proof stubbed: the mesh is what is checked)."""
+    from zkdcap_tpu_torch.parallel import Mesh
+    from zkdcap_tpu_torch.runtime import prover as runtime_prover
+
+    meshes = []
+    monkeypatch.setattr(ECDSAProver, "prepare",
+                        lambda self, inp, timing=False: (None, [], [inp.as_instances()]))
+    monkeypatch.setattr(ECDSAProver, "params", lambda self: None)
+    monkeypatch.setattr(runtime_prover, "create_proof",
+                        lambda *args, mesh=None, **kw: meshes.append(mesh) or b"\x01")
+    cpu = ECDSAProver(params_dir=prover.params_dir, k=18, device="cpu")
     inp = ECDSAInput.from_hex(REF_MSGHASH, REF_SIG, REF_PUBKEY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prover.create_proof(inp, shards=2)
+    assert cpu.create_proof(inp, shards=2, timing=False) == b"\x01"
+    assert cpu.create_proof(inp, shards=1, timing=False) == b"\x01"
+    mesh, single = meshes
+    assert isinstance(mesh, Mesh) and mesh.devices == [torch.device("cpu")] * 2
+    assert single is None
 
 
 def test_gen_evm_verifier_equals_reference(prover, jax_prover):

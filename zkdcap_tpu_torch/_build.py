@@ -156,12 +156,15 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry ``zk_<name>`` on the current stream; raise on a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), "zk_" + name)(*args, stream)
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C entry ``zk_<name>`` on `device`'s current stream, with `device`
+    the current CUDA device while it runs (the entries keep their one-time
+    setup per device); raise on a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib(), "zk_" + name)(*args, stream)
     if err:
-        raise RuntimeError(f"CUDA kernel {name} failed: error {err}")
+        raise RuntimeError(f"CUDA kernel {name} failed on {device}: error {err}")
     launches[name] += 1
 
 
@@ -187,15 +190,17 @@ def ptxas_report(log: str) -> dict:
     return funcs
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs must be contiguous, 16-byte aligned int32 tensors on
-    the current CUDA device."""
-    dev = torch.device("cuda", torch.cuda.current_device())
+def check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Kernel inputs must be contiguous, 16-byte aligned int32 tensors on one
+    CUDA device, which is returned."""
+    dev = tensors[0].device
     for t in tensors:
-        if (t.device != dev or t.dtype != torch.int32 or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name}: expects contiguous aligned int32 tensors on {dev}, "
-                             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+        if (t.device.type != "cuda" or t.device != dev or t.dtype != torch.int32
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: expects contiguous aligned int32 tensors on one CUDA "
+                             f"device ({dev}), got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    return dev
 
 
 def _host_cpu() -> bytes:

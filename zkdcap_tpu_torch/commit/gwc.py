@@ -61,10 +61,11 @@ def _group_by_point(queries):
     return [(pt, names[pt]) for pt in order]
 
 
-def gwc_open(params: ParamsKZG, transcript, queries,
+def gwc_open(params: ParamsKZG, transcript, queries, mesh=None,
              evals: dict[tuple[str, int], int] | None = None) -> None:
     """`evals` (name, point) -> claimed value: pass the prover's round-7
-    eval cache to skip re-evaluating every poly; None recomputes."""
+    eval cache to skip re-evaluating every poly; None recomputes. `mesh`:
+    every witness commitment is a sharded MSM."""
     polys = {q.name: q.poly for q in queries}
     if evals is None:
         evals = {}
@@ -92,7 +93,7 @@ def gwc_open(params: ParamsKZG, transcript, queries,
                        list(_enc(e_combs, dev)), list(_enc([pt for pt, _ in groups], dev)),
                        list(_enc([pow(pt, -1, R) for pt, _ in groups], dev)),
                        _enc([v], dev)[0])
-    for w_pt in params.commit_many(ws):
+    for w_pt in params.commit_many(ws, mesh=mesh):
         transcript.write_point(w_pt)
 
 

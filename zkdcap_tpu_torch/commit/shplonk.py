@@ -173,9 +173,9 @@ def run_w(combs, h_total, r_u_rows, scale_rows, z_t_u_row, u_row, uinv_row):
 
 
 def shplonk_open(params: ParamsKZG, transcript: TranscriptWriter, queries: list[ProverQuery],
-                 evals: dict[tuple[str, int], int] | None = None) -> None:
+                 mesh=None, evals: dict[tuple[str, int], int] | None = None) -> None:
     """`evals` (name, point) -> claimed value: the prover's round-7 values;
-    None evaluates every poly here."""
+    None evaluates every poly here. `mesh`: H and W are sharded MSMs."""
     polys = {q.name: q.poly for q in queries}
     if evals is None:
         evals = {}
@@ -199,14 +199,14 @@ def shplonk_open(params: ParamsKZG, transcript: TranscriptWriter, queries: list[
         [list(_enc(points, dev)) for points, _, _ in per_set],
         [list(_enc([pow(pt, -1, R) for pt in points], dev)) for points, _, _ in per_set],
         _enc([y], dev)[0], _enc([v], dev)[0])
-    transcript.write_point(params.commit(h_total))
+    transcript.write_point(params.commit(h_total, mesh=mesh))
     u = transcript.squeeze_challenge()
 
     z_t_u, scales = _set_scales(per_set, u, v)
     W = run_w(combs, h_total, list(_enc([_eval_host(r, u) for _, _, r in per_set], dev)),
               list(_enc(scales, dev)), _enc([z_t_u], dev)[0], _enc([u], dev)[0],
               _enc([pow(u, -1, R)], dev)[0])
-    transcript.write_point(params.commit(W))
+    transcript.write_point(params.commit(W, mesh=mesh))
 
 
 def shplonk_verify(params: ParamsKZG, transcript: TranscriptReader,

@@ -423,33 +423,37 @@ bitonic_permute_kernel(SortOps ops, const uint32_t* __restrict__ order,
   for (int o = 0; o < PLANES; ++o) out_block(ops, o + 1, w, s)[i] = r[o];
 }
 
-int sm_count() {
-  static int count = 0;
-  if (!count) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 132;
-  }
-  return count;
+// One-time state is per device (cudaFuncSetAttribute applies in the current
+// device's context), indexed by the current device's ordinal.
+constexpr int kMaxDevices = 64;
+
+int sm_count(int dev) {
+  static int count[kMaxDevices] = {};
+  if (!count[dev] &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    count[dev] = 132;
+  return count[dev];
 }
 
 template <int NOPS>
 int run_network(const SortOps& ops, int W, int S, int log_n, cudaStream_t stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   // the largest tile that leaves two blocks per SM, within [MIN_TILE_LOG, MAX_TILE_LOG]
   int t = log_n < MAX_TILE_LOG ? log_n : MAX_TILE_LOG;
-  while (t > MIN_TILE_LOG && ((long)W * S << (log_n - t)) < 2L * sm_count()) --t;
+  while (t > MIN_TILE_LOG && ((long)W * S << (log_n - t)) < 2L * sm_count(dev)) --t;
   const size_t smem = sizeof(uint64_t) * (size_t)pad(1 << t);
-  static bool attr_set = false;
-  cudaError_t err;
-  if (!attr_set) {
+  static bool attr_set[kMaxDevices] = {};
+  if (!attr_set[dev]) {
     const int max_smem = (int)(sizeof(uint64_t) * (size_t)pad(1 << MAX_TILE_LOG));
     if ((err = cudaFuncSetAttribute(bitonic_tile_kernel<NOPS>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem)) ||
         (err = cudaFuncSetAttribute(bitonic_group_kernel<NOPS>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem)))
       return err;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   // 16-byte accesses where every block of operands 0 and 1 starts aligned
   int vec = t >= 2;

@@ -25,6 +25,18 @@
 
 namespace zk {
 
+// A launcher's one-time setup (cudaFuncSetAttribute, SM counts, occupancy)
+// belongs to one device: the runtime applies a function attribute in the
+// current device's context. Launchers keep it in arrays indexed by the
+// current device's ordinal, which the Python wrapper sets to the tensors'.
+constexpr int kMaxDevices = 64;
+
+inline cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices)) return cudaErrorInvalidDevice;
+  return err;
+}
+
 struct Fe {
   uint32_t v[8];
 };

@@ -267,12 +267,16 @@ int launch_large(const int4* a, const int4* b, const int4* c, const int4* d, con
                  const int4* f, const int32_t* mask, int4* ox, int4* oy, int4* oz, int n,
                  int fallback_q, cudaStream_t s) {
   constexpr int kTileBytes = 3 * kL * 64;
-  static bool smem_set = false;  // above 48 KB, dynamic shared memory needs the opt-in
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ec_add_select_kernel<kL, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+  // above 48 KB, dynamic shared memory needs the opt-in, on each device
+  static bool smem_set[zk::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = zk::current_device(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(ec_add_select_kernel<kL, kT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
+    smem_set[dev] = true;
   }
   ec_add_select_kernel<kL, kT><<<(n + kL - 1) / kL, kT, kTileBytes, s>>>(
       a, b, c, d, e, f, mask, ox, oy, oz, n, fallback_q);
@@ -302,11 +306,14 @@ extern "C" int zk_ec_add_select(const void* x1, const void* y1, const void* z1, 
   // DCAP profile) the 901 launches of 102,400 lanes, the proofs'
   // Hillis-Steele levels, took 49.2 ms at 256 lanes a block (400 blocks);
   // at 128 (800 blocks, 1.5 waves) they and the 104 at 40,960 took 59.4.
-  static int one_wave_lanes = 0;
+  static int one_wave_lanes_of[zk::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = zk::current_device(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  int& one_wave_lanes = one_wave_lanes_of[dev];
   if (!one_wave_lanes) {
-    int dev = 0, sms = 0, blocks = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, blocks = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, ec_add_select_kernel<kThreads, kThreads>, kThreads, 3 * kThreads * 64);

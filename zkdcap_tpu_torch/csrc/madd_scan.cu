@@ -107,11 +107,15 @@ madd_scan_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ m
 extern "C" int zk_madd_scan(const void* rows, const void* masks, void* ox, void* oy, void* oz,
                             int steps, int lanes, void* stream) {
   if (steps < 1 || lanes < 1) return (int)cudaErrorInvalidValue;
-  static int one_wave_lanes = 0;  // lanes the card holds at once at 5 blocks an SM
+  // lanes each card holds at once at 5 blocks an SM
+  static int one_wave_lanes_of[zk::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t dev_err = zk::current_device(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  int& one_wave_lanes = one_wave_lanes_of[dev];
   if (!one_wave_lanes) {
-    int dev = 0, sms = 0, blocks = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, blocks = 0;
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, madd_scan_kernel<5>,
                                                           kScanThreads, 0);

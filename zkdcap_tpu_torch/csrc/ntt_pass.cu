@@ -260,13 +260,16 @@ constexpr int ntt_threads(int tile_log) {
 // first launch of each instantiation.
 template <int LOG_R, class Mul, int MAXT, int MINB>
 int ntt_launch(NttArgs a, int tile_log, cudaStream_t stream) {
-  static int sms = 0;
-  static int occupancy[kNttMaxTileLog + 1] = {};
+  static int sms_of[zk::kMaxDevices] = {};
+  static int occupancy_of[zk::kMaxDevices][kNttMaxTileLog + 1] = {};
   auto kernel = ntt_pass_kernel<LOG_R, Mul, MAXT, MINB>;
+  int dev = 0;
+  cudaError_t dev_err = zk::current_device(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  int& sms = sms_of[dev];
+  int* occupancy = occupancy_of[dev];
   if (!sms) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)(8 * sizeof(uint32_t)) << kNttMaxTileLog);

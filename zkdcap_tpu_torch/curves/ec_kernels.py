@@ -90,10 +90,10 @@ def _ec_add_select_cuda(spec, P, Q, mask, fallback) -> Point:
         if tuple(c.shape) != (n, L):
             raise ValueError(f"ec_add_select: coordinates must be ({n}, {L})")
     m32 = mask.reshape(n).to(torch.int32).contiguous()
-    _build.check_cuda("ec_add_select", *P, *Q, m32)
+    dev = _build.check_cuda("ec_add_select", *P, *Q, m32)
     out = tuple(torch.empty_like(P[0]) for _ in range(3))
     _build.launch("ec_add_select", *(t.data_ptr() for t in (*P, *Q, m32, *out)),
-                  n, 1 if fallback == "q" else 0)
+                  n, 1 if fallback == "q" else 0, device=dev)
     return out
 
 
@@ -109,9 +109,10 @@ def ec_madd_scan_full(spec: CurveSpec, Pm: torch.Tensor, masks: torch.Tensor) ->
     if _device_kind("ec_madd_scan_full", Pm) == "cuda":
         _require_g1(spec)
         Pm, masks = Pm.contiguous(), masks.contiguous()
-        _build.check_cuda("madd_scan", Pm, masks)
+        dev = _build.check_cuda("madd_scan", Pm, masks)
         out = tuple(torch.empty_like(Pm) for _ in range(3))
-        _build.launch("madd_scan", *(t.data_ptr() for t in (Pm, masks, *out)), M, B)
+        _build.launch("madd_scan", *(t.data_ptr() for t in (Pm, masks, *out)), M, B,
+                      device=dev)
         return out
     return ec_madd_scan_plain(spec, Pm, masks)
 
@@ -149,9 +150,10 @@ def ec_window_join(spec: CurveSpec, T: Point, window_bits: int) -> Point:
     if _device_kind("ec_window_join", T[0]) == "cuda":
         _require_g1(spec)
         T = tuple(c.contiguous() for c in T)
-        _build.check_cuda("window_join", *T)
+        dev = _build.check_cuda("window_join", *T)
         out = tuple(torch.empty(L, dtype=torch.int32, device=T[0].device) for _ in range(3))
-        _build.launch("window_join", *(t.data_ptr() for t in (*T, *out)), W, window_bits)
+        _build.launch("window_join", *(t.data_ptr() for t in (*T, *out)), W, window_bits,
+                      device=dev)
         return out
     return ec_window_join_plain(spec, T, window_bits)
 

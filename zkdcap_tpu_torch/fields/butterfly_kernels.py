@@ -57,9 +57,9 @@ def _butterfly_cuda(x, tw, s: int, tw_stride: int, out, log_n: int) -> torch.Ten
     if out is None:
         x = x.contiguous()
         out = torch.empty_like(x)
-    _build.check_cuda("butterfly", x, tw, out)
+    dev = _build.check_cuda("butterfly", x, tw, out)
     _build.launch("butterfly", x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                  x.shape[0], log_n, s, tw_stride)
+                  x.shape[0], log_n, s, tw_stride, device=dev)
     return out
 
 

@@ -76,7 +76,7 @@ def _mont_mul_cuda(params: FieldParams, a: torch.Tensor, b: torch.Tensor) -> tor
     n = full // L
     if n == 0:
         return out
-    _build.check_cuda("mont_mul", a, b)
+    dev = _build.check_cuda("mont_mul", a, b)
     _build.launch("mont_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                  pattern[0], pattern[1], _FIELD_CODE[params])
+                  pattern[0], pattern[1], _FIELD_CODE[params], device=dev)
     return out

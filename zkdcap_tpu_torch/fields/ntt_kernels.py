@@ -121,7 +121,7 @@ def ntt_pass(x: torch.Tensor, tw: torch.Tensor, ptw: torch.Tensor | None = None,
 def _ntt_pass_cuda(x, tw, ptw, out, rev_rows: bool, log_size: int) -> torch.Tensor:
     tw = tw.contiguous()
     ptw = None if ptw is None else ptw.contiguous()
-    _build.check_cuda("ntt_pass", *((tw,) if ptw is None else (tw, ptw)))
+    dev = _build.check_cuda("ntt_pass", *((tw,) if ptw is None else (tw, ptw)))
     if x.device != tw.device:
         raise ValueError(f"ntt_pass: x on {x.device}, the tables on {tw.device}")
     if out is None:
@@ -133,7 +133,7 @@ def _ntt_pass_cuda(x, tw, ptw, out, rev_rows: bool, log_size: int) -> torch.Tens
         "ntt_pass", x.data_ptr(), out.data_ptr(), tw.data_ptr(),
         None if ptw is None else ptw.data_ptr(), x4.shape[0], x4.shape[1], log_size,
         1 if ptw is None else ptw.shape[0], *x4.stride()[:3], *o4.stride()[:3],
-        x4.shape[1].bit_length() - 1 if rev_rows else 0)
+        x4.shape[1].bit_length() - 1 if rev_rows else 0, device=dev)
     return out
 
 

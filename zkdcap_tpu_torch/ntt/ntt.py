@@ -106,17 +106,17 @@ def _flat(batch: torch.Tensor, log_n: int, inverse: bool) -> torch.Tensor:
     return a
 
 
-def _four_step_split(log_n: int) -> tuple[int, int]:
+def four_step_split(log_n: int) -> tuple[int, int]:
     log_n1 = log_n // 2
     return log_n1, log_n - log_n1
 
 
 @functools.cache
-def _four_step_twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+def four_step_twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
     """(n, 16) table: tw[j*N1 + k1] = w^(j*k1) [* n^-1 if inverse]."""
     f = BN254_FR
     n = 1 << log_n
-    log_n1, log_n2 = _four_step_split(log_n)
+    log_n1, log_n2 = four_step_split(log_n)
     ptab = _power_table(f, _root(f, log_n, inverse), log_n, device)
     j = torch.arange(1 << log_n2, device=device)[:, None]
     k1 = torch.arange(1 << log_n1, device=device)[None, :]
@@ -143,19 +143,27 @@ def _transform(params: FieldParams, batch: torch.Tensor, inverse: bool) -> torch
     if log_n <= MAX_PASS_LOG:
         ptw = _n_inv(log_n, dev) if inverse else None
         return ntt_pass(batch, _pass_twiddles(log_n, inverse, dev), ptw)
-    log_n1, log_n2 = _four_step_split(log_n)
+    log_n1, log_n2 = four_step_split(log_n)
     N1, N2 = 1 << log_n1, 1 << log_n2
     # pass A over i for each column j: a[i*N2 + j] is column j, element i of
     # the (N1, N2) view, read in place; it writes (nb, N2, N1) contiguous
     cols = torch.empty(nb, N2, N1, L, dtype=batch.dtype, device=dev)
     ntt_pass(batch.unflatten(1, (N1, N2)).transpose(1, 2), _pass_twiddles(log_n1, inverse, dev),
-             _four_step_twiddles(log_n, inverse, dev), out=cols)
+             four_step_twiddles(log_n, inverse, dev), out=cols)
     # pass B over j for each row k1 (a column of cols), written in natural
     # order: out[k1 + N1*k2] = D[k1, k2]
     out = torch.empty(nb, n, L, dtype=batch.dtype, device=dev)
     ntt_pass(cols.transpose(1, 2), _pass_twiddles(log_n2, inverse, dev),
              out=out.view(nb, N2, N1, L).transpose(1, 2))
     return out
+
+
+def ntt_rows(params: FieldParams, batch: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """The NTT (or inverse NTT) of every row of a (B, n, 16) tensor or
+    strided view whose limb dimension is contiguous (kernel A reads the
+    strides): the sharded NTT's local transforms. Returns a new contiguous
+    (B, n, 16) tensor, or the input itself when n == 1."""
+    return _transform(params, batch, inverse)
 
 
 def ntt(params: FieldParams, a: torch.Tensor) -> torch.Tensor:

@@ -166,24 +166,31 @@ class Evaluator:
     fixed/advice/instance: lists of int32[n, 16] Montgomery Lagrange arrays
     on the evaluation domain; `rot_scale` = 1 on the row domain, or
     extended_n/n on the extended coset domain; challenges: name -> int or
-    (16,) Montgomery row.
+    (16,) Montgomery row. `rows` (a ``plonk.row_sharder.RowSharder``) with
+    `block`: evaluate block `block` of the rows only, on its shard.
     """
 
-    def __init__(self, fixed, advice, instance, rot_scale: int = 1, challenges=None):
+    def __init__(self, fixed, advice, instance, rot_scale: int = 1, challenges=None,
+                 rows=None, block: int = 0):
         self.fixed = fixed
         self.advice = advice
         self.instance = instance
         self.rot_scale = rot_scale
         self.challenges = challenges or {}
-        first = next(c for cols in (fixed, advice, instance) for c in cols)
-        self._n = first.shape[0]
-        self._device = first.device
+        self._rows, self._block = rows, block
+        if rows is None:
+            first = next(c for cols in (fixed, advice, instance) for c in cols)
+            self._n, self._device = first.shape[0], first.device
+        else:
+            self._n, self._device = rows.rows, rows.devices[block]
         self._cache: dict = {}
 
     def _col(self, arr, rotation: int):
+        # f(omega^rot * X) on the Lagrange grid = shift indices by +rot
+        if self._rows is not None:
+            return self._rows.block(arr, self._block, rotation * self.rot_scale)
         if rotation == 0:
             return arr
-        # f(omega^rot * X) on the Lagrange grid = shift indices by +rot
         return torch.roll(arr, -rotation * self.rot_scale, 0)
 
     def _row(self, value: int) -> torch.Tensor:

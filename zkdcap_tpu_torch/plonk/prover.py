@@ -16,7 +16,9 @@ The transcript runs on the host between rounds. With ``checkpoint_dir``,
 rounds 1-6 save their state (``plonk/checkpoint.py``) and a re-invoked
 proof resumes after the last saved round. Blinding comes from a
 caller-seeded PRNG when a seed is given (byte-identical proofs), else from
-fresh entropy. Every Montgomery product runs kernel E on the card.
+fresh entropy. Every Montgomery product runs kernel E on the card. With a
+mesh (``parallel/``) the commitments are sharded MSMs and rounds 3, 4 and 6
+run per row block (``plonk/row_sharder.py``); the bytes do not change.
 """
 
 from __future__ import annotations
@@ -35,12 +37,14 @@ from ..device import resolve
 from ..fields import mont
 from ..fields.params import BN254_FR
 from ..ntt import intt, intt_many
+from ..parallel.mesh import _is_mesh
 from ..poly.ops import batched_sum, power_table_for, power_table_row
 from ..transcript import TranscriptWriter
 from .checkpoint import Preempted, ProofCheckpoint
 from .cs import ConstraintSystem
 from .expression import Evaluator
 from .keygen import DELTA, ProvingKey, collect_queries
+from .row_sharder import RowSharder
 
 R = BN254_FR.p
 F = BN254_FR
@@ -62,26 +66,6 @@ def _seeded_rand_ints(seed: bytes, count: int) -> list[int]:
 
 def _enc(values, device) -> torch.Tensor:
     return mont.encode_ints(F, [v % R for v in values], device=device)
-
-
-def _batch_inv(x: torch.Tensor, n_active: int) -> torch.Tensor:
-    """Batch inverse of the first n_active rows (the rest replaced by 1, so
-    the product tree never meets a zero of the blinding rows)."""
-    mask = (torch.arange(x.shape[0], device=x.device) < n_active)[:, None]
-    return mont.batch_inv(F, torch.where(mask, x, mont.one_mont(F, (), x.device)))
-
-
-def _prefix_product_exclusive(ratios: torch.Tensor) -> torch.Tensor:
-    """z_j = prod_{t<j} ratios_t (z_0 = 1): a Hillis-Steele scan, log n
-    products. Field products are associative and commutative, so the
-    values equal the reference's associative scan."""
-    inc = ratios
-    n = inc.shape[0]
-    shift = 1
-    while shift < n:
-        inc = torch.cat([inc[:shift], mont.mont_mul(F, inc[shift:], inc[: n - shift])])
-        shift *= 2
-    return torch.cat([mont.one_mont(F, (1,), ratios.device), inc[:-1]])
 
 
 def _sort_keys(rows: torch.Tensor) -> torch.Tensor:
@@ -164,55 +148,62 @@ def _lookup_compress(cs: ConstraintSystem, ev: Evaluator, theta_r: torch.Tensor)
     return out
 
 
-def _grand_product(num: torch.Tensor, den: torch.Tensor, u: int) -> torch.Tensor:
-    """z_j = prod_{t<j} num_t / den_t over the u usable rows (1 past them)."""
-    n = num.shape[0]
-    ratios = mont.mont_mul(F, num, _batch_inv(den, u))
-    mask = (torch.arange(n, device=num.device) < u)[:, None]
-    return _prefix_product_exclusive(torch.where(mask, ratios, mont.one_mont(F, (), num.device)))
-
-
-def _perm_z(pk: ProvingKey, advice_lagr, instance_lagr, beta_r, gamma_r, blinds):
+def _perm_z(pk: ProvingKey, advice_lagr, instance_lagr, beta_r, gamma_r, blinds, mesh=None):
     """Round 3: every chunk's grand product, chained across chunks and
-    blinded, in Lagrange form."""
+    blinded, in Lagrange form; with `mesh`, num and den per row block."""
     cs = pk.cs
     n = 1 << pk.k
     u = cs.usable_rows(n)
     m = len(cs.permutation_columns)
     chunk = cs.permutation_chunk_len
-    dev = beta_r.device
-    omega_pows = power_table_for(F, pk.domain.omega, n, dev)
+    rows = RowSharder(mesh, n, beta_r.device)
+    omega_pows = power_table_for(F, pk.domain.omega, n, beta_r.device)
+    rows.split_pk(pk, "fixed_lagrange", pk.fixed_lagrange)
+    rows.split_pk(pk, "sigma_lagrange", pk.sigma_lagrange)
+    rows.split(omega_pows, *advice_lagr, *instance_lagr)
     cols = {"fixed": pk.fixed_lagrange, "advice": advice_lagr, "instance": instance_lagr}
     zs, last_z_end = [], None
     for zi, c0 in enumerate(range(0, m, chunk)):
-        num = den = None
-        for i in range(c0, min(c0 + chunk, m)):
-            col = cs.permutation_columns[i]
-            vals = cols[col.kind][col.index]
-            bd = mont.mont_mul(F, beta_r, _enc([pow(DELTA, i, R)], dev))
-            nterm = mont.add(F, mont.add(F, vals, mont.mont_mul(F, omega_pows, bd)), gamma_r)
-            sterm = mont.mont_mul(F, pk.sigma_lagrange[i], beta_r)
-            dterm = mont.add(F, mont.add(F, vals, sterm), gamma_r)
-            num = nterm if num is None else mont.mont_mul(F, num, nterm)
-            den = dterm if den is None else mont.mont_mul(F, den, dterm)
-        z = _grand_product(num, den, u)
-        if last_z_end is not None:
-            z = mont.mont_mul(F, z, last_z_end)
+        nums, dens = [], []
+        for b, dev in enumerate(rows.devices):
+            beta_b, gamma_b = beta_r.to(dev), gamma_r.to(dev)
+            num = den = None
+            for i in range(c0, min(c0 + chunk, m)):
+                col = cs.permutation_columns[i]
+                vals = rows.block(cols[col.kind][col.index], b)
+                bd = mont.mont_mul(F, beta_b, _enc([pow(DELTA, i, R)], dev))
+                nterm = mont.add(F, mont.add(F, vals, mont.mont_mul(F, rows.block(omega_pows, b),
+                                                                    bd)), gamma_b)
+                sterm = mont.mont_mul(F, rows.block(pk.sigma_lagrange[i], b), beta_b)
+                dterm = mont.add(F, mont.add(F, vals, sterm), gamma_b)
+                num = nterm if num is None else mont.mont_mul(F, num, nterm)
+                den = dterm if den is None else mont.mont_mul(F, den, dterm)
+            nums.append(num)
+            dens.append(den)
+        z = rows.grand_product(nums, dens, u, carry=last_z_end)
         last_z_end = z[u : u + 1].clone()
         z[u + 1 :] = blinds[zi]
         zs.append(z)
     return zs
 
 
-def _lookup_z(pk: ProvingKey, lookup_data, beta_r, gamma_r, blinds):
-    """Round 4: each lookup's grand product, blinded, in Lagrange form."""
-    u = pk.cs.usable_rows(1 << pk.k)
+def _lookup_z(pk: ProvingKey, lookup_data, beta_r, gamma_r, blinds, mesh=None):
+    """Round 4: each lookup's grand product, blinded, in Lagrange form; with
+    `mesh`, num and den per row block."""
+    n = 1 << pk.k
+    u = pk.cs.usable_rows(n)
+    rows = RowSharder(mesh, n, beta_r.device)
     zs = []
     for ld, blind in zip(lookup_data, blinds):
-        num = mont.mont_mul(F, mont.add(F, ld["a"], beta_r), mont.add(F, ld["s"], gamma_r))
-        den = mont.mont_mul(F, mont.add(F, ld["a_perm"], beta_r),
-                            mont.add(F, ld["s_perm"], gamma_r))
-        z = _grand_product(num, den, u)
+        arrs = [ld[key] for key in ("a", "s", "a_perm", "s_perm")]
+        rows.split(*arrs)
+        nums, dens = [], []
+        for b, dev in enumerate(rows.devices):
+            beta_b, gamma_b = beta_r.to(dev), gamma_r.to(dev)
+            a, s_, ap, sp = (rows.block(x, b) for x in arrs)
+            nums.append(mont.mont_mul(F, mont.add(F, a, beta_b), mont.add(F, s_, gamma_b)))
+            dens.append(mont.mont_mul(F, mont.add(F, ap, beta_b), mont.add(F, sp, gamma_b)))
+        z = rows.grand_product(nums, dens, u)
         z[u + 1 :] = blind
         zs.append(z)
     return zs
@@ -308,13 +299,23 @@ def create_proof(
     JAX package's format; a re-invoked create_proof with the same inputs
     resumes after the last completed round and emits a byte-identical
     proof. Checkpoints are removed on success. `_abort_after` is a
-    test-only hook simulating preemption after a named round (r1..r6)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "create_proof(mesh=...) is not ported yet (ROADMAP.md queue 1, slice 10: parallel/)")
+    test-only hook simulating preemption after a named round (r1..r6).
+
+    mesh: a ``parallel.Mesh`` whose first shard is the pk's device. Every
+    commitment is a sharded MSM, and rounds 3, 4 and 6 run per row block
+    (``plonk/row_sharder.py``) unless ``ZKDCAP_SHARD_ROWS=0`` (read at each
+    call). The proof bytes equal the single-device proof's."""
     if multiopen not in ("shplonk", "gwc"):
         raise ValueError(f"unknown multiopen {multiopen!r}")
     dev = resolve(device)
+    rows_mesh = None
+    if mesh is not None:
+        mesh = _is_mesh(mesh)
+        if mesh.first != pk.device:
+            raise ValueError(f"the mesh's first shard {mesh.first} is not the pk's device "
+                             f"{pk.device}")
+        if os.environ.get("ZKDCAP_SHARD_ROWS", "1") != "0":
+            rows_mesh = mesh
     if blinding_seed is None:
         blinding_seed = os.urandom(32)
     last_phases.clear()
@@ -387,7 +388,7 @@ def create_proof(
             a[u + 1 :] = _blind_vals(b"adv%d" % i, n - u - 1)
             advice_lagrange.append(a)
         advice_coeff = intt_many(F, advice_lagrange)
-        for pt in params.commit_many(advice_coeff):
+        for pt in params.commit_many(advice_coeff, mesh=mesh):
             transcript.write_point(pt)
         _done("r1", seed=blinding_seed, advice_lagrange=advice_lagrange,
               advice_coeff=advice_coeff)
@@ -417,7 +418,7 @@ def create_proof(
             for li, ld in enumerate(lookup_data):
                 ld["a_perm_coeff"] = perm_coeffs[2 * li]
                 ld["s_perm_coeff"] = perm_coeffs[2 * li + 1]
-            for pt in params.commit_many(perm_coeffs):
+            for pt in params.commit_many(perm_coeffs, mesh=mesh):
                 transcript.write_point(pt)
         _done("r2", lookup_data=lookup_data)
     _abort("r2")
@@ -437,8 +438,8 @@ def create_proof(
             blinds = [_blind_vals(b"permz%d" % zi, n - u - 1)
                       for zi in range(-(-m // cs.permutation_chunk_len))]
             perm_z_coeff = intt_many(F, _perm_z(pk, advice_lagrange, instance_lagrange,
-                                                beta_r, gamma_r, blinds))
-        for pt in params.commit_many(perm_z_coeff):
+                                                beta_r, gamma_r, blinds, mesh=rows_mesh))
+        for pt in params.commit_many(perm_z_coeff, mesh=mesh):
             transcript.write_point(pt)
         _done("r3", perm_z_coeff=perm_z_coeff)
     _abort("r3")
@@ -450,8 +451,9 @@ def create_proof(
         z_coeffs = st["z_coeffs"]
     elif lookup_data:
         blinds = [_blind_vals(b"lkz%d" % li, n - u - 1) for li in range(len(lookup_data))]
-        z_coeffs = intt_many(F, _lookup_z(pk, lookup_data, beta_r, gamma_r, blinds))
-        for pt in params.commit_many(z_coeffs):
+        z_coeffs = intt_many(F, _lookup_z(pk, lookup_data, beta_r, gamma_r, blinds,
+                                          mesh=rows_mesh))
+        for pt in params.commit_many(z_coeffs, mesh=mesh):
             transcript.write_point(pt)
     else:
         z_coeffs = []
@@ -468,7 +470,7 @@ def create_proof(
     random_poly = _enc(_seeded_rand_ints(blinding_seed + b"rand", n), dev)
     # the poly is seed-determined: a resume restores only the transcript
     if _resume("r5") is None:
-        transcript.write_point(params.commit(random_poly))
+        transcript.write_point(params.commit(random_poly, mesh=mesh))
         _done("r5")
     _abort("r5")
     y = transcript.squeeze_challenge()
@@ -479,8 +481,9 @@ def create_proof(
         h_pieces = st["h_pieces"]
     else:
         h_pieces = _compute_quotient(pk, advice_coeff, instance_lagrange, lookup_data,
-                                     perm_z_coeff, _row(theta), beta_r, gamma_r, _row(y))
-        for pt in params.commit_many(h_pieces):
+                                     perm_z_coeff, _row(theta), beta_r, gamma_r, _row(y),
+                                     mesh=rows_mesh)
+        for pt in params.commit_many(h_pieces, mesh=mesh):
             transcript.write_point(pt)
         _done("r6", h_pieces=h_pieces)
     _abort("r6")
@@ -515,7 +518,7 @@ def create_proof(
 
     # --- round 8: multiopen ----------------------------------------------
     opener = gwc_open if multiopen == "gwc" else shplonk_open
-    opener(params, transcript, queries, evals=eval_cache)
+    opener(params, transcript, queries, mesh=mesh, evals=eval_cache)
     _phase("multiopen")
     if ck:
         ck.clear()  # consumed: a finished proof leaves no resume state
@@ -523,26 +526,60 @@ def create_proof(
 
 
 def _compute_quotient(pk: ProvingKey, advice_coeff, instance_lagrange, lookup_data,
-                      perm_z_coeff, theta_r, beta_r, gamma_r, y_r):
+                      perm_z_coeff, theta_r, beta_r, gamma_r, y_r, mesh=None):
     """Round 6: sum_i y^i * constraint_i on the extended coset, divided by
-    Z_H; returns the quotient pieces in coefficient form (n each)."""
+    Z_H; returns the quotient pieces in coefficient form (n each). The
+    extended arrays are made whole on the first shard; with `mesh`, each
+    shard evaluates the constraints on its row block."""
     cs = pk.cs
     domain = pk.domain
     n = domain.n
     ext_n = domain.extended_n
-    ratio = ext_n // n
+    dev = y_r.device
+
+    advice_ext = [domain.coeff_to_extended(a) for a in advice_coeff]
+    instance_ext = [domain.coeff_to_extended(intt(F, i)) for i in instance_lagrange]
+    zs_ext = [domain.coeff_to_extended(zc) for zc in perm_z_coeff]
+    lookups_ext = [tuple(domain.coeff_to_extended(ld[key])
+                         for key in ("z_coeff", "a_perm_coeff", "s_perm_coeff"))
+                   for ld in lookup_data]
+    xs = None
+    if cs.permutation_columns:
+        xs = mont.mont_mul(F, power_table_for(F, domain.extended_omega, ext_n, dev),
+                           _enc([domain.g_coset], dev))
+    rows = RowSharder(mesh, ext_n, dev)
+    for tag in ("fixed_extended", "sigma_extended"):
+        rows.split_pk(pk, tag, getattr(pk, tag))
+    rows.split_pk(pk, "selectors_extended", (pk.l0_ext, pk.llast_ext, pk.lblind_ext, pk.zh_inv_ext))
+    rows.split(*advice_ext, *instance_ext, *zs_ext, *(a for t in lookups_ext for a in t),
+               *(() if xs is None else (xs,)))
+    h_ext = rows.gather([
+        _quotient_block(pk, rows, b, advice_ext, instance_ext, zs_ext, lookups_ext, xs,
+                        *(r.to(rows.devices[b]) for r in (theta_r, beta_r, gamma_r, y_r)))
+        for b in range(len(rows.devices))])
+    h_coeff = domain.extended_to_coeff(h_ext)
+    return [h_coeff[i * n : (i + 1) * n] for i in range(cs.quotient_pieces())]
+
+
+def _quotient_block(pk: ProvingKey, rows: RowSharder, b: int, advice_ext, instance_ext, zs_ext,
+                    lookups_ext, xs, theta_r, beta_r, gamma_r, y_r):
+    """Block b of (sum_i y^i * constraint_i) / Z_H, on its shard."""
+    cs = pk.cs
+    n = pk.domain.n
+    ratio = pk.domain.extended_n // n
     u = cs.usable_rows(n)
     m = len(cs.permutation_columns)
     chunk = cs.permutation_chunk_len
     dev = y_r.device
-    l0, llast = pk.l0_ext, pk.llast_ext
+    l0, llast = rows.block(pk.l0_ext, b), rows.block(pk.llast_ext, b)
 
-    advice_ext = [domain.coeff_to_extended(a) for a in advice_coeff]
-    instance_ext = [domain.coeff_to_extended(intt(F, i)) for i in instance_lagrange]
+    def at(x, shift=0):  # block b of x(w^(shift / ratio) X)
+        return rows.block(x, b, shift)
+
     ev = Evaluator(pk.fixed_extended, advice_ext, instance_ext, rot_scale=ratio,
-                   challenges={"theta": theta_r})
+                   challenges={"theta": theta_r}, rows=rows, block=b)
     one_ext = mont.one_mont(F, (1,), dev)
-    active = mont.sub(F, one_ext, mont.add(F, llast, pk.lblind_ext))
+    active = mont.sub(F, one_ext, mont.add(F, llast, at(pk.lblind_ext)))
 
     acc = None
     y_pow = mont.one_mont(F, (1,), dev)
@@ -564,49 +601,45 @@ def _compute_quotient(pk: ProvingKey, advice_coeff, instance_lagrange, lookup_da
 
     # permutation
     if m:
-        zs_ext = [domain.coeff_to_extended(zc) for zc in perm_z_coeff]
-        add_constraint(mont.mont_mul(F, l0, mont.sub(F, one_ext, zs_ext[0])))
-        zl = zs_ext[-1]
+        add_constraint(mont.mont_mul(F, l0, mont.sub(F, one_ext, at(zs_ext[0]))))
+        zl = at(zs_ext[-1])
         add_constraint(mont.mont_mul(F, llast, mont.sub(F, mont.mont_mul(F, zl, zl), zl)))
         # chunk chaining: l_0 (z_c - z_{c-1}(w^u X))
         for c in range(1, len(zs_ext)):
-            prev_rot = torch.roll(zs_ext[c - 1], -u * ratio, 0)
-            add_constraint(mont.mont_mul(F, l0, mont.sub(F, zs_ext[c], prev_rot)))
+            prev_rot = at(zs_ext[c - 1], u * ratio)
+            add_constraint(mont.mont_mul(F, l0, mont.sub(F, at(zs_ext[c]), prev_rot)))
         # active (z(wX) prod(col + beta sigma + gamma) - z prod(col + beta delta^i X + gamma))
         cols = {"fixed": pk.fixed_extended, "advice": advice_ext, "instance": instance_ext}
-        xs = mont.mont_mul(F, power_table_for(F, domain.extended_omega, ext_n, dev),
-                           _enc([domain.g_coset], dev))
+        xs_b = at(xs)
         for ci, c0 in enumerate(range(0, m, chunk)):
-            left = torch.roll(zs_ext[ci], -ratio, 0)
-            right = zs_ext[ci]
+            left = at(zs_ext[ci], ratio)
+            right = at(zs_ext[ci])
             for i in range(c0, min(c0 + chunk, m)):
                 col = cs.permutation_columns[i]
-                vals = cols[col.kind][col.index]
-                sterm = mont.mont_mul(F, pk.sigma_extended[i], beta_r)
+                vals = at(cols[col.kind][col.index])
+                sterm = mont.mont_mul(F, at(pk.sigma_extended[i]), beta_r)
                 left = mont.mont_mul(F, left, mont.add(F, mont.add(F, vals, sterm), gamma_r))
                 bd = mont.mont_mul(F, beta_r, _enc([pow(DELTA, i, R)], dev))
-                idterm = mont.mont_mul(F, xs, bd)
+                idterm = mont.mont_mul(F, xs_b, bd)
                 right = mont.mont_mul(F, right, mont.add(F, mont.add(F, vals, idterm), gamma_r))
             add_constraint(mont.mont_mul(F, active, mont.sub(F, left, right)))
 
     # lookups
-    for (a_comp, s_comp), ld in zip(_lookup_compress(cs, ev, theta_r), lookup_data):
-        z_ext = domain.coeff_to_extended(ld["z_coeff"])
-        ap_ext = domain.coeff_to_extended(ld["a_perm_coeff"])
-        sp_ext = domain.coeff_to_extended(ld["s_perm_coeff"])
-        z_next = torch.roll(z_ext, -ratio, 0)
-        ap_prev = torch.roll(ap_ext, ratio, 0)
-        boundary(z_ext)
+    for (a_comp, s_comp), (z_ext, ap_ext, sp_ext) in zip(_lookup_compress(cs, ev, theta_r),
+                                                         lookups_ext):
+        z_b, ap_b, sp_b = at(z_ext), at(ap_ext), at(sp_ext)
+        z_next = at(z_ext, ratio)
+        ap_prev = at(ap_ext, -ratio)
+        boundary(z_b)
         # active (z(wX)(A' + beta)(S' + gamma) - z(X)(A + beta)(S + gamma))
-        lhs = mont.mont_mul(F, z_next, mont.mont_mul(F, mont.add(F, ap_ext, beta_r),
-                                                     mont.add(F, sp_ext, gamma_r)))
-        rhs = mont.mont_mul(F, z_ext, mont.mont_mul(F, mont.add(F, a_comp, beta_r),
-                                                    mont.add(F, s_comp, gamma_r)))
+        lhs = mont.mont_mul(F, z_next, mont.mont_mul(F, mont.add(F, ap_b, beta_r),
+                                                     mont.add(F, sp_b, gamma_r)))
+        rhs = mont.mont_mul(F, z_b, mont.mont_mul(F, mont.add(F, a_comp, beta_r),
+                                                  mont.add(F, s_comp, gamma_r)))
         add_constraint(mont.mont_mul(F, active, mont.sub(F, lhs, rhs)))
-        ap_sp = mont.sub(F, ap_ext, sp_ext)
+        ap_sp = mont.sub(F, ap_b, sp_b)
         add_constraint(mont.mont_mul(F, l0, ap_sp))  # l_0 (A' - S')
         # active (A' - S') (A' - A'(w^-1 X))
-        add_constraint(mont.mont_mul(F, active, mont.mont_mul(F, ap_sp, mont.sub(F, ap_ext, ap_prev))))
+        add_constraint(mont.mont_mul(F, active, mont.mont_mul(F, ap_sp, mont.sub(F, ap_b, ap_prev))))
 
-    h_coeff = domain.extended_to_coeff(mont.mont_mul(F, acc, pk.zh_inv_ext))
-    return [h_coeff[i * n : (i + 1) * n] for i in range(cs.quotient_pieces())]
+    return mont.mont_mul(F, acc, at(pk.zh_inv_ext))

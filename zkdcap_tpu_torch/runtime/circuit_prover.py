@@ -20,8 +20,9 @@ Subclass contract:
 
 ``multiopen="gwc"`` selects the GWC19 multiopen for proofs and verify;
 ``create_proof(checkpoint=True)`` saves each round's state under the params
-dir and resumes an interrupted proof. Not ported yet, and raising
-``NotImplementedError`` naming ROADMAP.md: ``create_proof(shards > 1)``.
+dir and resumes an interrupted proof; ``create_proof(shards=N)`` proves
+over a mesh of N shards (``parallel/``), and ``prepare`` gives what a proof
+proves (pk, advice, instances) for a caller's own mesh.
 """
 
 from __future__ import annotations
@@ -41,11 +42,11 @@ from ..device import resolve
 from ..fields import BN254_FR, mont
 from ..interop import load_pk, save_pk
 from ..ntt import Domain
+from ..parallel.mesh import service_mesh
 from ..plonk.keygen import ProvingKey, VerifyingKey, keygen
 from ..plonk.prover import create_proof
 from ..plonk.verifier import verify_proof
 from ..transcript import TranscriptWriter
-from .prover import _not_ported
 
 
 class CircuitProver:
@@ -255,36 +256,26 @@ class CircuitProver:
 
     # --- proving ----------------------------------------------------------
 
-    def create_proof(self, inp, timing: bool = True,
-                     shards: int | None = None,
-                     checkpoint: bool = False,
-                     self_verify: bool | None = None, *,
-                     blinding_seed: bytes | None = None) -> bytes:
-        """blinding_seed: passed to ``plonk.prover.create_proof``; None draws
-        fresh entropy (hiding proofs), a seed gives reproducible bytes.
-        checkpoint: persist per-round state under params_dir for resumable
-        proofs (a re-invoked proof with the same input resumes).
-        Phase times land in ``last_phases`` and ``metrics``."""
-        if shards is not None and shards > 1:
-            raise _not_ported("create_proof(shards > 1)", "slice 10: parallel/")
+    def _phase(self, name: str, t0: float, timing: bool) -> float:
+        now = time.perf_counter()
+        self.last_phases[name] = now - t0
+        metrics.record(f"runtime.{self.NAME}.{name}", now - t0, k=self.k)
+        if timing:
+            print(f"[runtime] {name}: {now - t0:.2f}s", file=sys.stderr, flush=True)
+        return now
+
+    def prepare(self, inp, timing: bool = False):
+        """What ``create_proof`` proves: (pk, advice columns on the device,
+        instances), with the keygen (or load), the native tape replay, the
+        witness fill and the device encode timed into ``last_phases``."""
         from ..witness.native import eval_tape_raw
-
-        self.last_phases.clear()
-
-        def _p(name, t0):
-            now = time.perf_counter()
-            self.last_phases[name] = now - t0
-            metrics.record(f"runtime.{self.NAME}.{name}", now - t0, k=self.k)
-            if timing:
-                print(f"[runtime] {name}: {now - t0:.2f}s", file=sys.stderr, flush=True)
-            return now
 
         t = time.perf_counter()
         pk = self.keygen()
-        t = _p("keygen(cached)", t)
+        t = self._phase("keygen(cached)", t, timing)
         # compiled witness generation: replay the recorded tape natively
         raw = eval_tape_raw(self._get_tape(), self.trace_inputs(inp))
-        t = _p("witness replay", t)
+        t = self._phase("witness replay", t, timing)
         sctx = self._structure_ctx
         limbs = self._builder.witness_limbs(self._compiled, sctx, raw)
         inst_cells = getattr(sctx, "instance_cells", [])
@@ -292,23 +283,42 @@ class CircuitProver:
             [[int.from_bytes(raw[c].tobytes(), "little") for c in inst_cells]]
             if inst_cells else []
         )
-        t = _p("witness fill", t)
+        t = self._phase("witness fill", t, timing)
         adv = mont.to_mont(BN254_FR, torch.from_numpy(limbs.astype(np.int32)).to(self.device))
         advice_dev = [adv[i] for i in range(adv.shape[0])]
-        t = _p("device encode", t)
+        self._phase("device encode", t, timing)
+        return pk, advice_dev, instances
+
+    def create_proof(self, inp, timing: bool = True,
+                     shards: int | None = None,
+                     checkpoint: bool = False,
+                     self_verify: bool | None = None, *,
+                     blinding_seed: bytes | None = None) -> bytes:
+        """shards: prove over a mesh of N shards (``parallel.service_mesh``:
+        N CPU shards on the CPU, else the first N cards, raising when there
+        are fewer); the proof bytes equal the one-device proof's.
+        blinding_seed: passed to ``plonk.prover.create_proof``; None draws
+        fresh entropy (hiding proofs), a seed gives reproducible bytes.
+        checkpoint: persist per-round state under params_dir for resumable
+        proofs (a re-invoked proof with the same input resumes).
+        Phase times land in ``last_phases`` and ``metrics``."""
+        mesh = service_mesh(shards, self.device)
+        self.last_phases.clear()
+        pk, advice_dev, instances = self.prepare(inp, timing)
+        t = time.perf_counter()
         proof = create_proof(self.params(), pk, advice_dev, instances,
                              TranscriptWriter(pk.vk.transcript_kind),
-                             blinding_seed=blinding_seed, timing=timing,
+                             blinding_seed=blinding_seed, timing=timing, mesh=mesh,
                              checkpoint_dir=self.params_dir if checkpoint else None,
                              multiopen=self.multiopen, device=self.device)
-        t = _p("create_proof", t)
+        self._phase("create_proof", t, timing)
         metrics.dump(os.path.join(self.params_dir, "metrics.jsonl"))
         if self_verify is None:
             self_verify = os.environ.get("ZKDCAP_SELF_VERIFY", "") == "1"
         if self_verify:
             t = time.perf_counter()
             assert self.verify(proof, instances=instances), "self-verify failed"
-            _p("self-verify", t)
+            self._phase("self-verify", t, timing)
         return proof
 
     def verify(self, proof: bytes, instances: list | None = None) -> bool:

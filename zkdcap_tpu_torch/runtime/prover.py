@@ -16,10 +16,10 @@ valid sample signature; proofs replay the tape with the real input.
 
 ``multiopen="gwc"`` selects the GWC19 multiopen for proofs and verify;
 ``create_proof(checkpoint=True)`` saves each round's state under the params
-dir and resumes an interrupted proof (``plonk/checkpoint.py``).
-
-Not ported yet, and raising ``NotImplementedError`` naming ROADMAP.md:
-``create_proof(shards > 1)`` (``parallel/``).
+dir and resumes an interrupted proof (``plonk/checkpoint.py``);
+``create_proof(shards=N)`` proves over a mesh of N shards (``parallel/``),
+and ``prepare`` gives what a proof proves (pk, advice, instances) for a
+caller's own mesh.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..device import resolve
 from ..fields import BN254_FR, mont
 from ..interop import load_pk, save_pk
 from ..ntt import Domain
+from ..parallel.mesh import service_mesh
 from ..plonk.keygen import ProvingKey, VerifyingKey, keygen
 from ..plonk.prover import create_proof
 from ..plonk.verifier import verify_proof
@@ -60,10 +61,6 @@ def _sample_input() -> ECDSAInput:
 
 
 SAMPLE_INPUT = _sample_input()
-
-
-def _not_ported(what: str, where: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {where})")
 
 
 class ECDSAProver:
@@ -223,12 +220,49 @@ class ECDSAProver:
 
     # --- proving ----------------------------------------------------------
 
+    def _phase(self, name: str, t0: float, timing: bool) -> float:
+        now = time.perf_counter()
+        self.last_phases[name] = now - t0
+        metrics.record(f"runtime.{name}", now - t0, k=self.k)
+        if timing:
+            print(f"[runtime] {name}: {now - t0:.2f}s", file=sys.stderr, flush=True)
+        return now
+
+    def prepare(self, inp: ECDSAInput, timing: bool = False):
+        """What ``create_proof`` proves: (pk, advice columns on the device,
+        instances), with the keygen (or load), the native tape replay, the
+        witness fill and the device encode timed into ``last_phases``."""
+        from ..witness.native import eval_tape_raw
+
+        t = time.perf_counter()
+        pk = self.keygen()
+        t = self._phase("keygen(cached)", t, timing)
+        # compiled witness generation: replay the recorded tape natively
+        raw = eval_tape_raw(self._get_tape(), trace_inputs(inp))
+        t = self._phase("witness replay", t, timing)
+        sctx = self._structure_ctx
+        limbs = self._builder.witness_limbs(self._compiled, sctx, raw)
+        inst = [
+            int.from_bytes(raw[c].tobytes(), "little") for c in sctx.instance_cells
+        ]
+        instances = [inst]
+        t = self._phase("witness fill", t, timing)
+        assert len(instances[0]) == 15, "expected 15 public instances"
+        assert instances[0] == inp.as_instances()
+        adv = mont.to_mont(BN254_FR, torch.from_numpy(limbs.astype(np.int32)).to(self.device))
+        advice_dev = [adv[i] for i in range(adv.shape[0])]
+        self._phase("device encode", t, timing)
+        return pk, advice_dev, instances
+
     def create_proof(self, inp: ECDSAInput, evm: bool = False, timing: bool = True,
                      shards: int | None = None,
                      checkpoint: bool = False,
                      self_verify: bool | None = None, *,
                      blinding_seed: bytes | None = None) -> bytes:
         """evm: prove under the keccak transcript (the EVM verifier's).
+        shards: prove over a mesh of N shards (``parallel.service_mesh``: N
+        CPU shards on the CPU, else the first N cards, raising when there are
+        fewer); the proof bytes equal the one-device proof's.
         self_verify: verify the proof before returning. Default: the
         ZKDCAP_SELF_VERIFY env var (reference analog of debug_assertions).
         blinding_seed: passed to ``plonk.prover.create_proof``; None draws
@@ -236,44 +270,16 @@ class ECDSAProver:
         checkpoint: persist per-round state under params_dir for resumable
         proofs (a re-invoked proof with the same input resumes).
         Phase times land in ``last_phases`` and ``metrics``."""
-        if shards is not None and shards > 1:
-            raise _not_ported("create_proof(shards > 1)", "slice 10: parallel/")
-        from ..witness.native import eval_tape_raw
-
+        mesh = service_mesh(shards, self.device)
         self.last_phases.clear()
-
-        def _p(name, t0):
-            now = time.perf_counter()
-            self.last_phases[name] = now - t0
-            metrics.record(f"runtime.{name}", now - t0, k=self.k)
-            if timing:
-                print(f"[runtime] {name}: {now - t0:.2f}s", file=sys.stderr, flush=True)
-            return now
-
+        pk, advice_dev, instances = self.prepare(inp, timing)
         t = time.perf_counter()
-        pk = self.keygen()
-        t = _p("keygen(cached)", t)
-        # compiled witness generation: replay the recorded tape natively
-        raw = eval_tape_raw(self._get_tape(), trace_inputs(inp))
-        t = _p("witness replay", t)
-        sctx = self._structure_ctx
-        limbs = self._builder.witness_limbs(self._compiled, sctx, raw)
-        inst = [
-            int.from_bytes(raw[c].tobytes(), "little") for c in sctx.instance_cells
-        ]
-        instances = [inst]
-        t = _p("witness fill", t)
-        assert len(instances[0]) == 15, "expected 15 public instances"
-        assert instances[0] == inp.as_instances()
-        adv = mont.to_mont(BN254_FR, torch.from_numpy(limbs.astype(np.int32)).to(self.device))
-        advice_dev = [adv[i] for i in range(adv.shape[0])]
-        t = _p("device encode", t)
         kind = "keccak" if evm else self.transcript_kind
         proof = create_proof(self.params(), pk, advice_dev, instances, TranscriptWriter(kind),
-                             blinding_seed=blinding_seed, timing=timing,
+                             blinding_seed=blinding_seed, timing=timing, mesh=mesh,
                              checkpoint_dir=self.params_dir if checkpoint else None,
                              multiopen=self.multiopen, device=self.device)
-        t = _p("create_proof", t)
+        self._phase("create_proof", t, timing)
         # structured metrics artifact: one JSON-lines file per params dir,
         # appended per proof
         metrics.dump(os.path.join(self.params_dir, "metrics.jsonl"))
@@ -284,7 +290,7 @@ class ECDSAProver:
             # executes the generated Solidity verifier
             t = time.perf_counter()
             assert self.verify(instances[0], proof, evm=evm), "self-verify failed"
-            _p("self-verify" + (" (evm executed)" if evm else ""), t)
+            self._phase("self-verify" + (" (evm executed)" if evm else ""), t, timing)
         return proof
 
     def verifier_params(self) -> ParamsKZG:

@@ -42,7 +42,7 @@ from ..curves import BN254_G1
 from ..curves import ec_kernels as ek
 from ..curves.device_g1 import G1_SPEC, affine_to_projective, encode_points
 from ..fields import BN254_FR, mul_kernels, ntt_kernels
-from ..ntt.ntt import _four_step_twiddles, _pass_twiddles
+from ..ntt.ntt import four_step_twiddles, _pass_twiddles
 
 HERE = Path(__file__).resolve().parent
 OUT = _build.BUILD_DIR.parent / "variants"
@@ -164,7 +164,7 @@ def main() -> int:
         out = out.view(size, rows, 16).transpose(0, 1) if layout == "transposed" else \
             out.view(rows, size, 16)
         tw = _pass_twiddles(log_s, False, dev)
-        ptw = None if ptw_log is None else _four_step_twiddles(ptw_log, False, dev)
+        ptw = None if ptw_log is None else four_step_twiddles(ptw_log, False, dev)
         ref = ntt_kernels.ntt_pass_plain(x, tw, ptw)
         fns = {}
         designs = [(d, 0, name) for d, name in A_DESIGNS.items()

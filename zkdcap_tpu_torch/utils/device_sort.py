@@ -95,7 +95,7 @@ def _sort_cuda(ins: list[tuple[torch.Tensor, int, int, int]],
     rows."""
     if len(ins) not in KERNEL_OPS:
         raise ValueError(f"kernel F is built for {KERNEL_OPS} operands, got {len(ins)}")
-    _build.check_cuda("bitonic_sort", *{id(t): t for t, *_ in ins + outs}.values())
+    dev = _build.check_cuda("bitonic_sort", *{id(t): t for t, *_ in ins + outs}.values())
     n_ops = len(ins)
     scratch = None
     if n_ops == max(KERNEL_OPS):  # the positions, then the planes as 32-byte rows
@@ -114,7 +114,7 @@ def _sort_cuda(ins: list[tuple[torch.Tensor, int, int, int]],
     _build.launch("bitonic_sort", ctypes.addressof(in_p), ctypes.addressof(out_p),
                   ctypes.addressof(in_ws), ctypes.addressof(in_ss), ctypes.addressof(out_ws),
                   ctypes.addressof(out_ss), n_ops, W, S, _log2(n),
-                  None if scratch is None else scratch.data_ptr())
+                  None if scratch is None else scratch.data_ptr(), device=dev)
 
 
 # --- entry points ----------------------------------------------------------
