@@ -78,7 +78,11 @@ fails, printing no result, without them or outside a checkout of the repo.
    virtual shards of ``cuda:0`` on a machine with one card (it prints
    ``cards: N`` and ``virtual``): the 2^20 MSM and the 2^22 NTT over 2, 4 and
    8 shards, equal to one device's results (medians of three, beside one
-   device's); the P-256 proof on one device, over 2 and 4 shards and again
+   device's; each with the number of lanes ``Mesh.map`` issued the shards
+   in: one a card, so one for virtual shards), and on distinct cards
+   one profiled call of each with the cards' busy ms and the concurrency
+   ratio (their sum over the wall time; above 1, the cards overlapped); the
+   P-256 proof on one device, over 2 and 4 shards and again
    with ``ZKDCAP_SHARD_ROWS=0``, and the DCAP proof on one device and over 2
    shards, each equal to its fixture (seconds, rounds, launches and peak
    memory each);
@@ -1226,9 +1230,10 @@ def sharded_phase(say, card: str, dev, pts20, scal_std, msm_point, a22, p256: di
         if decode_points(G1_SPEC, tuple(r.reshape(1, -1) for r in R))[0] != msm_point:
             raise AssertionError(f"sharded MSM 2^{SIZES['msm_log']} over {n} shards differs "
                                  "from msm_device and the host oracle")
-        out["msm"][n] = {"ms": ms, "runs_ms": [t * 1e3 for t in times]}
+        out["msm"][n] = {"ms": ms, "runs_ms": [t * 1e3 for t in times], "lanes": len(set(m.devices))}
     say(f"sharded MSM 2^{n20.bit_length() - 1}: equals msm_device and the host oracle over "
-        + ", ".join(f"{n} shards {r['ms']:.1f} ms" for n, r in out["msm"].items())
+        + ", ".join(f"{n} shards {r['ms']:.1f} ms ({r['lanes']} lane"
+                    f"{'s' if r['lanes'] > 1 else ''})" for n, r in out["msm"].items())
         + f"; one device {out['msm_single_ms']:.1f} ms (medians of 3) ({card})")
     ms, _, ref = timed3(lambda: ntt(BN254_FR, a22))
     out["ntt_single_ms"] = ms
@@ -1238,11 +1243,29 @@ def sharded_phase(say, card: str, dev, pts20, scal_std, msm_point, a22, p256: di
         ms, times, got = timed3(lambda: gather_rows(m, sharded_ntt(m, a22)))
         if not torch.equal(got, ref):
             raise AssertionError(f"sharded NTT 2^{SIZES['ntt_log']} over {n} shards != ntt")
-        out["ntt"][n] = {"ms": ms, "runs_ms": [t * 1e3 for t in times]}
+        out["ntt"][n] = {"ms": ms, "runs_ms": [t * 1e3 for t in times], "lanes": len(set(m.devices))}
     say(f"sharded NTT 2^{SIZES['ntt_log']} (row blocks gathered): equals ntt over "
-        + ", ".join(f"{n} shards {r['ms']:.2f} ms" for n, r in out["ntt"].items())
+        + ", ".join(f"{n} shards {r['ms']:.2f} ms ({r['lanes']} lane"
+                    f"{'s' if r['lanes'] > 1 else ''})" for n, r in out["ntt"].items())
         + f"; one device {out['ntt_single_ms']:.2f} ms (medians of 3) ({card})")
     del ref, got
+    if cards > 1:
+        # distinct cards: how far their kernels overlapped (one profiled call each)
+        from zkdcap_tpu_torch.tools.concurrency import concurrency
+
+        n = 1 << (min(cards, max(SHARDS)).bit_length() - 1)
+        m = mesh(n)
+        out["concurrency"] = {}
+        for name, fn in ((f"MSM 2^{SIZES['msm_log']}", lambda: sharded_msm(m, pts20, scal_m)),
+                         (f"NTT 2^{SIZES['ntt_log']}", lambda: sharded_ntt(m, a22))):
+            c = concurrency(fn)
+            c.pop("result")
+            out["concurrency"][name] = c
+            say(f"sharded {name} over {n} cards ({len(set(m.devices))} lanes), profiled: wall "
+                f"{c['wall_ms']:.1f} ms, busy " + ", ".join(
+                    f"cuda:{d} {b:.1f}" for d, b in c["busy_ms"].items())
+                + f" ms, {c['overlap_ms']:.1f} ms of it with two or more cards at once; "
+                f"concurrency ratio {c['ratio']:.2f} ({card})")
 
     def prove(name, prover, inp, fix, n, rows=True):
         pk, advice, instances = prover.prepare(inp)

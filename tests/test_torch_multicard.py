@@ -15,6 +15,15 @@ with ``python -m pytest --noconftest tests/test_torch_multicard.py``.
   MSM and NTT and the flex proof in one process, and one NCCL process per
   card sharing a ``(cards, 1)`` mesh, equal to one device's results and
   to the fixture's bytes.
+* The sharded 2^20 and 2^22 MSMs over every card equal the host curve's
+  value, and their cards ran at the same time (a profiled call,
+  ``tools/concurrency.py``): at 2^20 the concurrency ratio (the sum of the
+  cards' busy time over the call's wall time) is above 1; at 2^22 two or
+  more cards were busy at once for some of the call.
+* A prover service on ``cuda:1`` proves with ``shards=2`` (its mesh puts
+  ``cuda:1`` first): ``ECDSAProver`` gives the fixture's k = 18 bytes, and
+  ``python -m zkdcap_tpu_torch.cli --device cuda:1 --shards 2 prove`` on its
+  params dir exits 0 with a proof that verifies.
 """
 
 import json
@@ -44,6 +53,7 @@ from zkdcap_tpu_torch.plonk import cs as tcs
 from zkdcap_tpu_torch.plonk.keygen import keygen
 from zkdcap_tpu_torch.plonk.prover import create_proof
 from zkdcap_tpu_torch.testdata.circuits import REFERENCE_CASES, padded_advice, toy_circuit
+from zkdcap_tpu_torch.tools.concurrency import concurrency
 from zkdcap_tpu_torch.transcript import TranscriptWriter
 from zkdcap_tpu_torch.utils.device_sort import (
     bitonic_sort, bitonic_sort_plain, sort_rows_by_key, sort_rows_by_key_plain)
@@ -257,3 +267,57 @@ def test_nccl_processes_share_a_mesh(cards, tmp_path):
     for r in results:
         assert r["backend"] == "nccl" and r["shape"] == {"host": len(cards), "chip": 1}
         assert r["msm"] and r["ntt"] and r["proof"] == FIXTURE["proofs"]["blake2b"]
+
+
+def _msm_over_every_card(cards, log: int) -> dict:
+    """The sharded 2^log MSM over every card, checked against the host
+    curve, then one profiled call: tools.concurrency's readings."""
+    mesh = proving_mesh(len(cards), devices=cards)
+    dev = cards[0]
+    pts = _points(1 << log, dev)  # point i is [4^(i mod 64)]G
+    sc = _rand_fr(1 << log, log, dev)
+    R = sharded_msm(mesh, pts, sc)
+    weights = [pow(4, j, BN254_G1.n) for j in range(64)]
+    total = sum(s * weights[i % 64] for i, s in enumerate(mont.decode_ints(BN254_FR, sc)))
+    want = BN254_G1.mul(total % BN254_G1.n, BN254_G1.g)
+    assert decode_points(G1_SPEC, tuple(r.reshape(1, -1) for r in R))[0] == want
+    c = concurrency(lambda: sharded_msm(mesh, pts, sc))
+    assert set(c["busy_ms"]) == set(range(len(cards)))
+    return c
+
+
+@pytest.mark.cuda
+def test_msm_over_every_card_runs_the_cards_at_once(cards):
+    # the cards' busy time summed exceeds the profiled call's wall time
+    c = _msm_over_every_card(cards, 20)
+    assert c["ratio"] > 1, c
+
+
+@pytest.mark.cuda
+def test_bigger_msm_over_every_card_overlaps_the_cards(cards):
+    # 2^22 points (2^20 a card): two or more cards were busy at the same time
+    c = _msm_over_every_card(cards, 22)
+    assert c["overlap_ms"] > 0, c
+
+
+@pytest.mark.cuda
+def test_service_on_a_second_card_proves_over_shards(cards, tmp_path):
+    from zkdcap_tpu_torch.circuits.p256_ecdsa import ECDSAInput
+    from zkdcap_tpu_torch.runtime import ECDSAProver
+
+    fix = json.loads((ROOT / "zkdcap_tpu_torch" / "testdata" / "p256_proof.json").read_text())
+    params_dir = tmp_path / "params"
+    prover = ECDSAProver(params_dir=str(params_dir), k=18, device="cuda:1")
+    inp = ECDSAInput.from_hex(fix["msghash"], fix["signature"], fix["pubkey"])
+    proof = prover.create_proof(inp, timing=False, shards=2,
+                                blinding_seed=fix["seed"].encode())
+    assert proof.hex() == fix["proof"]
+    out = tmp_path / "proof.hex"
+    res = subprocess.run(
+        [sys.executable, "-m", "zkdcap_tpu_torch.cli", "--device", "cuda:1", "--shards", "2",
+         "--params-dir", str(params_dir), "prove", "--msghash", fix["msghash"],
+         "--signature", fix["signature"], "--pubkey", fix["pubkey"], "--output", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    cli_proof = bytes.fromhex(out.read_text().strip().removeprefix("0x"))
+    assert prover.verify(inp.as_instances(), cli_proof)

@@ -69,12 +69,14 @@ launches = {"ntt_pass": 0, "madd_scan": 0, "ec_add_select": 0, "window_join": 0,
 _lib = None
 _witness_lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()  # exact counts when a caller launches from several threads
 build_log = ""  # nvcc's output (-Xptxas -v: registers, spills) of the current library
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -165,7 +167,8 @@ def launch(name: str, *args, device: torch.device) -> None:
         err = getattr(lib(), "zk_" + name)(*args, stream)
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed on {device}: error {err}")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
 
 
 def ptxas_report(log: str) -> dict:

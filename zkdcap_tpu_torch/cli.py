@@ -18,8 +18,9 @@ messages, outputs and exit codes, and a global ``--device`` (default: the
 card). Every prover runs on that device; with no card and no ``--device``
 the prover raises, and the CLI never falls back to the CPU. The CUDA kernels
 are built at their first use into ``build/``. ``--shards N`` proves over a
-mesh of N shards (N CPU shards with ``--device cpu``, else the first N
-cards; fewer raise). Run it with ``python -m zkdcap_tpu_torch.cli``.
+mesh of N shards (N CPU shards with ``--device cpu``, else N cards,
+``--device``'s first; fewer raise). Run it with
+``python -m zkdcap_tpu_torch.cli``.
 """
 
 from __future__ import annotations
@@ -276,8 +277,8 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=None,
                     help="circuit degree (overrides --config)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="shard the prover across the first N local devices "
-                         "(N CPU shards with --device cpu)")
+                    help="shard the prover across N local cards, --device's "
+                         "first (N CPU shards with --device cpu)")
     ap.add_argument("--checkpoint", action="store_true",
                     help="persist per-round proof state under params-dir; "
                          "an interrupted prove resumes on re-run")

@@ -214,9 +214,26 @@ class _Sorts:
         self.ends = sort_supported(N // self.S) and bitonic_ok
 
 
+def run_steps(steps):
+    """Run a generator of steps (it yields before each host read) to its end;
+    returns its value."""
+    while True:
+        try:
+            next(steps)
+        except StopIteration as done:
+            return done.value
+
+
 def _group_buckets(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
                    G: int, M: int, nb: int, sorts: _Sorts) -> Point:
-    """(WP, N) signed digits -> (WP, nb, 16) bucket sums (slot i = bucket i+1).
+    """(WP, N) signed digits -> (WP, nb, 16) bucket sums (slot i = bucket i+1)."""
+    return run_steps(_group_buckets_steps(spec, rows, d_grp, G, M, nb, sorts))
+
+
+def _group_buckets_steps(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
+                         G: int, M: int, nb: int, sorts: _Sorts):
+    """:func:`_group_buckets` as steps: a generator that yields once, before
+    its host read, and returns the bucket sums.
 
     With the row sort each window splits into S segments of N / S points
     (G / S lanes), sorted independently: the tail below runs per (window,
@@ -292,6 +309,7 @@ def _group_buckets(spec: CurveSpec, rows: torch.Tensor, d_grp: torch.Tensor,
     # -- segmented Hillis-Steele over the run partials --------------------------
     nz = vd != 0
     pos = idxK[None].expand(WS, K)
+    yield  # _hs_levels reads the device back: on a mesh, the other shards issue first
     for s in range(_hs_levels(vd, G_seg)):
         shift = 1 << s
         inf = ec_inf(spec, (WS, shift), dev)
@@ -317,6 +335,14 @@ def msm_device(spec: CurveSpec, points: torch.Tensor, scalars_std: torch.Tensor,
     scalars_std: int32[N, 16] standard form; N a multiple of `lanes`.
     c: signed-window width (0 = the size-tuned default). Returns one
     projective point as a 3-tuple of (16,)."""
+    return run_steps(msm_device_steps(spec, points, scalars_std, lanes, c))
+
+
+def msm_device_steps(spec: CurveSpec, points: torch.Tensor, scalars_std: torch.Tensor,
+                     lanes: int, c: int = 0):
+    """:func:`msm_device` as steps: a generator that yields before each of
+    its host reads (one a window group) and returns the point, so that
+    ``Mesh.map`` can issue the other shards' work while a card catches up."""
     N = points.shape[0]
     c = c or _auto_c(N)
     if not 2 <= c <= 16:
@@ -330,8 +356,10 @@ def msm_device(spec: CurveSpec, points: torch.Tensor, scalars_std: torch.Tensor,
     WP = _window_parallel(n_windows, G)
     rows = pack_affine_rows(points)
     sorts = _Sorts(N, G)
-    parts = [_group_buckets(spec, rows, digits[w : w + WP], G, M, nb, sorts)
-             for w in range(0, n_windows, WP)]
+    parts = []
+    for w in range(0, n_windows, WP):
+        parts.append((yield from _group_buckets_steps(spec, rows, digits[w : w + WP], G, M,
+                                                      nb, sorts)))
     buckets = tuple(torch.cat([p[i] for p in parts]) for i in range(3))  # (W, nb, 16)
 
     # split-weight aggregation: slot i holds bucket i+1 and i = hi*2^H + lo;

@@ -4,12 +4,25 @@ Port of ``zkdcap_tpu/parallel/mesh.py``. A JAX ``Mesh`` names devices that
 one compiled ``shard_map`` program runs on; here a :class:`Mesh` is an
 ordered list of shards, each a ``torch.device``, and the sharded functions
 (``parallel/sharded_msm.py``, ``parallel/sharded_ntt.py``, the prover's row
-sharder) loop over this process's shards and exchange blocks through the
-mesh's two collectives, :meth:`Mesh.all_gather` and :meth:`Mesh.all_to_all`.
-Within a process a collective is tensor copies between the shards' devices;
-across processes it packs the local shards' blocks into one tensor for one
-``torch.distributed`` call, NCCL for CUDA shards and gloo for CPU shards.
-No kernel reads another device's memory.
+sharder) run each shard's work through :meth:`Mesh.map` and exchange blocks
+through the mesh's two collectives, :meth:`Mesh.all_gather` and
+:meth:`Mesh.all_to_all`. Within a process a collective is tensor copies
+between the shards' devices; across processes it packs the local shards'
+blocks into one tensor for one ``torch.distributed`` call, NCCL for CUDA
+shards and gloo for CPU shards. No kernel reads another device's memory.
+
+:meth:`Mesh.map` runs each shard's work, with the shards on distinct devices
+in lanes, one a device, issued by one thread: a device's shards run in flat
+order, and a shard's work that reads its card back (the MSM's Hillis-Steele
+levels) runs as steps that end before each read, the lanes taking turns step
+by step, so every card is given its work up to its next read before the
+thread waits on any. The cards overlap only where a card's work outlasts the
+host's issue of the other cards' (on four H100s: the 2^22 MSM, not the 2^20
+MSM, the NTT or a proof); work without reads runs as the loop it replaced.
+A thread a card fought for the interpreter lock at every launch (the 2^20
+MSM 6x slower on four H100s than one thread). A mesh of virtual shards on
+one device (``["cpu"] * 8``, ``["cuda:0"] * 4``) has one lane. The
+collectives and the splits run between maps.
 
 * :func:`proving_mesh`: one axis ``shard`` over the first n CUDA devices,
   or over an explicit device list, which may repeat a device: the
@@ -28,6 +41,8 @@ r is ``r * chips + c`` (the JAX package's ``flat_axis_index``).
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import math
 import os
 import weakref
@@ -93,6 +108,48 @@ class Mesh:
     def local_shards(self) -> list[tuple[int, torch.device]]:
         """(flat index, device) of each of this process's shards."""
         return [(self.offset + i, d) for i, d in enumerate(self.devices)]
+
+    def _lane_key(self, i: int, dev: torch.device):
+        """The lane that map() issues item i (on dev) in: its device."""
+        return dev
+
+    def map(self, fn, *per_shard_args, devices=None) -> list:
+        """``fn(*args)`` for each of this process's shards, with the shard's
+        item of each of ``per_shard_args``; the results in flat shard order.
+        ``devices``: one device of the mesh per item, where the items are
+        not the shards (default: the shards' devices).
+
+        Each device is a lane: its items run one after another in flat
+        order, under ``torch.cuda.device``. An item whose ``fn`` returns a
+        generator runs as steps (it yields before each host read, as
+        ``msm.pippenger.msm_device_steps`` does), and the lanes take turns
+        step by step: every lane issues its card's work up to its next read
+        before any lane reads. An exception is raised here as it comes."""
+        devs = self.devices if devices is None else [_indexed(torch.device(d)) for d in devices]
+        items = list(zip(*per_shard_args)) if per_shard_args else [()] * len(devs)
+        if len(items) != len(devs) or any(len(a) != len(devs) for a in per_shard_args):
+            raise ValueError(f"map needs one item per device ({len(devs)})")
+        lanes: dict = {}
+        for i, dev in enumerate(devs):
+            lanes.setdefault(self._lane_key(i, dev), []).append(i)
+        out: list = [None] * len(items)
+
+        def lane(idx):  # yields each item's device, then None before each of its steps
+            for i in idx:
+                yield devs[i]
+                r = fn(*items[i])
+                out[i] = (yield from r) if inspect.isgenerator(r) else r
+
+        active = [[g, next(g)] for g in (lane(idx) for idx in lanes.values())]
+        while active:
+            for step in list(active):
+                with torch.cuda.device(step[1]) if step[1].type == "cuda" \
+                        else contextlib.nullcontext():
+                    try:
+                        step[1] = next(step[0]) or step[1]
+                    except StopIteration:
+                        active.remove(step)
+        return out
 
     def split(self, x: torch.Tensor) -> list[torch.Tensor]:
         """This process's row blocks of x (equal, in flat shard order), each
@@ -210,14 +267,21 @@ def proving_mesh(n_devices: int | None = None, devices=None, axis: str = "shard"
 
 def service_mesh(shards: int | None, device) -> Mesh | None:
     """The mesh of a prover service's ``create_proof(shards=N)``: None for N
-    None or 1, N shards on the CPU for a CPU service, else the first N
-    cards (raising when the machine has fewer)."""
+    None or 1, N shards on the CPU for a CPU service, else N cards with the
+    service's own first (its pk's device) and then the others in index
+    order (raising when the machine has fewer)."""
     if shards is None or shards <= 1:
         return None
     dev = torch.device(device)
     if dev.type == "cpu":
         return proving_mesh(shards, devices=[dev] * shards)
-    return proving_mesh(shards)
+    cards = _cuda_devices(None)
+    own = _indexed(dev)
+    if own not in cards:
+        raise ValueError(f"no CUDA device {own}")
+    if shards > len(cards):
+        raise ValueError(f"need {shards} CUDA devices, have {len(cards)}")
+    return proving_mesh(devices=[own] + [d for d in cards if d != own][:shards - 1])
 
 
 def multihost_mesh(num_hosts: int | None = None, devices=None, host_axis: str = "host",

@@ -13,9 +13,13 @@ Ladder-sized blocks of shards that share a device, and of every polynomial
 of one round's commitments, run as one batched ladder (one launch of
 kernel C per step for all of them), as ``msm_many_host`` batches a round's
 polynomials on one device; above the ladder, each shard runs one
-``msm_device`` per polynomial, as the JAX package does. The SRS blocks of
-each shard are cached on the mesh per (SRS, prefix length): a proof's
-commitments then copy no points between cards.
+``msm_device`` per polynomial, as the JAX package does. On distinct devices
+the shards interleave (``Mesh.map``): each ``msm_device`` runs as steps
+that end before its reads of the Hillis-Steele levels, so every card is
+given its work up to its next read before the host waits on any; the cards
+then overlap as far as a card's work outlasts the host's issue. The SRS
+blocks of each shard are cached on the mesh per (SRS, prefix length): a
+proof's commitments then copy no points between cards.
 """
 
 from __future__ import annotations
@@ -25,31 +29,43 @@ import torch
 from ..curves.device_g1 import G1_SPEC, CurveSpec, Point
 from ..fields import mont
 from ..fields.params import BN254_FR
-from ..msm.pippenger import SMALL_MSM_MAX, _pad_rows, _tree_sum, msm_device, msm_ladder
+from ..msm.pippenger import SMALL_MSM_MAX, _pad_rows, _tree_sum, msm_device_steps, msm_ladder
 from .mesh import Mesh, _is_mesh
 
 
-def _local_partials(spec: CurveSpec, pts: list[torch.Tensor],
+def _local_partials(mesh: Mesh, spec: CurveSpec, pts: list[torch.Tensor],
                     std: list[list[torch.Tensor]]) -> list[torch.Tensor]:
     """pts[shard] (b, 2, 16), std[poly][shard] (b, 16) -> each shard's MSMs
-    as (polys, 3, 16) projective points on its device."""
+    as (polys, 3, 16) projective points on its device, the shards on
+    distinct devices interleaved step by step (``Mesh.map``)."""
     b = pts[0].shape[0]
     if b > SMALL_MSM_MAX:
         n_pow = 1 << (b - 1).bit_length()
         lanes = min(16384, n_pow)
-        return [torch.stack([torch.stack(msm_device(spec, _pad_rows(p, n_pow),
-                                                    _pad_rows(s[i], n_pow), lanes))
-                             for s in std])
-                for i, p in enumerate(pts)]
-    out: list[torch.Tensor | None] = [None] * len(pts)
+
+        def shard(p, scalars):  # steps: Mesh.map issues the other shards at each read
+            parts = []
+            for s in scalars:
+                R = yield from msm_device_steps(spec, _pad_rows(p, n_pow), _pad_rows(s, n_pow),
+                                                lanes)
+                parts.append(torch.stack(R))
+            return torch.stack(parts)
+
+        return mesh.map(shard, pts, list(zip(*std)))
     by_device: dict[torch.device, list[int]] = {}
     for i, p in enumerate(pts):
         by_device.setdefault(p.device, []).append(i)
-    for idx in by_device.values():
+
+    def ladder(idx):
         X, Y, Z = msm_ladder(spec, torch.stack([pts[i] for i in idx]),
                              torch.stack([torch.stack([s[i] for i in idx]) for s in std]))
-        for j, i in enumerate(idx):
-            out[i] = torch.stack([X[:, j], Y[:, j], Z[:, j]], 1)
+        return [torch.stack([X[:, j], Y[:, j], Z[:, j]], 1) for j in range(len(idx))]
+
+    out: list[torch.Tensor | None] = [None] * len(pts)
+    groups = list(by_device.values())
+    for idx, parts in zip(groups, mesh.map(ladder, groups, devices=list(by_device))):
+        for i, part in zip(idx, parts):
+            out[i] = part
     return out
 
 
@@ -70,7 +86,8 @@ def sharded_msm_many(mesh: Mesh, points: torch.Tensor, scalars_list,
         raise ValueError(f"N={m} not divisible by {mesh.size} shards")
     pts = mesh.cached(points, ("points", m), lambda: mesh.split(points[:m]))
     std = [mesh.split(_pad_rows(mont.from_mont(BN254_FR, s), m)) for s in scalars_list]
-    parts = torch.stack(mesh.all_gather(_local_partials(spec, pts, std)))  # (shards, polys, 3, 16)
+    # (shards, polys, 3, 16)
+    parts = torch.stack(mesh.all_gather(_local_partials(mesh, spec, pts, std)))
     X, Y, Z = _tree_sum(spec, tuple(parts[:, :, i] for i in range(3)), 0)
     return [(X[k], Y[k], Z[k]) for k in range(len(scalars_list))]
 

@@ -162,11 +162,13 @@ def _perm_z(pk: ProvingKey, advice_lagr, instance_lagr, beta_r, gamma_r, blinds,
     rows.split_pk(pk, "sigma_lagrange", pk.sigma_lagrange)
     rows.split(omega_pows, *advice_lagr, *instance_lagr)
     cols = {"fixed": pk.fixed_lagrange, "advice": advice_lagr, "instance": instance_lagr}
+    blocks = range(len(rows.devices))
+    betas = [beta_r.to(dev) for dev in rows.devices]
+    gammas = [gamma_r.to(dev) for dev in rows.devices]
     zs, last_z_end = [], None
     for zi, c0 in enumerate(range(0, m, chunk)):
-        nums, dens = [], []
-        for b, dev in enumerate(rows.devices):
-            beta_b, gamma_b = beta_r.to(dev), gamma_r.to(dev)
+        def num_den(b, beta_b, gamma_b):
+            dev = beta_b.device
             num = den = None
             for i in range(c0, min(c0 + chunk, m)):
                 col = cs.permutation_columns[i]
@@ -178,8 +180,9 @@ def _perm_z(pk: ProvingKey, advice_lagr, instance_lagr, beta_r, gamma_r, blinds,
                 dterm = mont.add(F, mont.add(F, vals, sterm), gamma_b)
                 num = nterm if num is None else mont.mont_mul(F, num, nterm)
                 den = dterm if den is None else mont.mont_mul(F, den, dterm)
-            nums.append(num)
-            dens.append(den)
+            return num, den
+
+        nums, dens = zip(*rows.map(num_den, blocks, betas, gammas))
         z = rows.grand_product(nums, dens, u, carry=last_z_end)
         last_z_end = z[u : u + 1].clone()
         z[u + 1 :] = blinds[zi]
@@ -193,16 +196,20 @@ def _lookup_z(pk: ProvingKey, lookup_data, beta_r, gamma_r, blinds, mesh=None):
     n = 1 << pk.k
     u = pk.cs.usable_rows(n)
     rows = RowSharder(mesh, n, beta_r.device)
+    blocks = range(len(rows.devices))
+    betas = [beta_r.to(dev) for dev in rows.devices]
+    gammas = [gamma_r.to(dev) for dev in rows.devices]
     zs = []
     for ld, blind in zip(lookup_data, blinds):
         arrs = [ld[key] for key in ("a", "s", "a_perm", "s_perm")]
         rows.split(*arrs)
-        nums, dens = [], []
-        for b, dev in enumerate(rows.devices):
-            beta_b, gamma_b = beta_r.to(dev), gamma_r.to(dev)
+
+        def num_den(b, beta_b, gamma_b):
             a, s_, ap, sp = (rows.block(x, b) for x in arrs)
-            nums.append(mont.mont_mul(F, mont.add(F, a, beta_b), mont.add(F, s_, gamma_b)))
-            dens.append(mont.mont_mul(F, mont.add(F, ap, beta_b), mont.add(F, sp, gamma_b)))
+            return (mont.mont_mul(F, mont.add(F, a, beta_b), mont.add(F, s_, gamma_b)),
+                    mont.mont_mul(F, mont.add(F, ap, beta_b), mont.add(F, sp, gamma_b)))
+
+        nums, dens = zip(*rows.map(num_den, blocks, betas, gammas))
         z = rows.grand_product(nums, dens, u)
         z[u + 1 :] = blind
         zs.append(z)
@@ -553,10 +560,11 @@ def _compute_quotient(pk: ProvingKey, advice_coeff, instance_lagrange, lookup_da
     rows.split_pk(pk, "selectors_extended", (pk.l0_ext, pk.llast_ext, pk.lblind_ext, pk.zh_inv_ext))
     rows.split(*advice_ext, *instance_ext, *zs_ext, *(a for t in lookups_ext for a in t),
                *(() if xs is None else (xs,)))
-    h_ext = rows.gather([
-        _quotient_block(pk, rows, b, advice_ext, instance_ext, zs_ext, lookups_ext, xs,
-                        *(r.to(rows.devices[b]) for r in (theta_r, beta_r, gamma_r, y_r)))
-        for b in range(len(rows.devices))])
+    challenges = [[r.to(dev) for dev in rows.devices] for r in (theta_r, beta_r, gamma_r, y_r)]
+    h_ext = rows.gather(rows.map(
+        lambda b, *ch: _quotient_block(pk, rows, b, advice_ext, instance_ext, zs_ext,
+                                       lookups_ext, xs, *ch),
+        range(len(rows.devices)), *challenges))
     h_coeff = domain.extended_to_coeff(h_ext)
     return [h_coeff[i * n : (i + 1) * n] for i in range(cs.quotient_pieces())]
 

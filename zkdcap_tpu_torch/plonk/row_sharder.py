@@ -8,6 +8,8 @@ read (``f(w^r X)``, a ``torch.roll`` on one device) takes the rows past a
 block's end from the whole array, wrapping modulo the array's length, so a
 rotation may reach across any number of blocks. A grand product runs per
 block and the blocks' totals carry across (:meth:`RowSharder.grand_product`).
+The prover's per-block work goes through :meth:`RowSharder.map`
+(``Mesh.map``: a lane a device).
 Results are gathered on the first shard. Without a mesh there is one block,
 the whole array, and every method is what the prover does on one device.
 
@@ -102,6 +104,14 @@ class RowSharder:
             rows = torch.cat([rows, x[:self.rows - rows.shape[0]]])
         return rows.to(self.shards[i][1])
 
+    def map(self, fn, *per_block_args) -> list:
+        """``fn(*args)`` for each local block with the block's item of each
+        of ``per_block_args``, through ``Mesh.map``; without a mesh, the one
+        block here."""
+        if self.mesh is None:
+            return [fn(*args) for args in zip(*per_block_args)]
+        return self.mesh.map(fn, *per_block_args)
+
     def gather(self, blocks: list[torch.Tensor]) -> torch.Tensor:
         """The local blocks -> the whole array on the first shard (without a
         mesh, the one block itself)."""
@@ -115,13 +125,14 @@ class RowSharder:
         batch inverse and exclusive prefix product, then the product of the
         totals of the blocks before it. Returns the whole z on the first
         shard."""
-        incs = []
-        for i, (num, den) in enumerate(zip(nums, dens)):
+        def inclusive(i, num, den):
             dev = num.device
             mask = ((self.start(i) + torch.arange(num.shape[0], device=dev)) < u)[:, None]
             one = mont.one_mont(F, (), dev)
             ratios = mont.mont_mul(F, num, mont.batch_inv(F, torch.where(mask, den, one)))
-            incs.append(prefix_product_inclusive(torch.where(mask, ratios, one)))
+            return prefix_product_inclusive(torch.where(mask, ratios, one))
+
+        incs = self.map(inclusive, range(len(nums)), nums, dens)
         if self.mesh is None:
             carries = [carry]
         else:

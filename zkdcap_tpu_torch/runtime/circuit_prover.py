@@ -295,8 +295,9 @@ class CircuitProver:
                      self_verify: bool | None = None, *,
                      blinding_seed: bytes | None = None) -> bytes:
         """shards: prove over a mesh of N shards (``parallel.service_mesh``:
-        N CPU shards on the CPU, else the first N cards, raising when there
-        are fewer); the proof bytes equal the one-device proof's.
+        N CPU shards on the CPU, else N cards, the service's own first,
+        raising when there are fewer); the proof bytes equal the one-device
+        proof's.
         blinding_seed: passed to ``plonk.prover.create_proof``; None draws
         fresh entropy (hiding proofs), a seed gives reproducible bytes.
         checkpoint: persist per-round state under params_dir for resumable

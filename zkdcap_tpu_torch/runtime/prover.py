@@ -261,8 +261,8 @@ class ECDSAProver:
                      blinding_seed: bytes | None = None) -> bytes:
         """evm: prove under the keccak transcript (the EVM verifier's).
         shards: prove over a mesh of N shards (``parallel.service_mesh``: N
-        CPU shards on the CPU, else the first N cards, raising when there are
-        fewer); the proof bytes equal the one-device proof's.
+        CPU shards on the CPU, else N cards, the service's own first, raising
+        when there are fewer); the proof bytes equal the one-device proof's.
         self_verify: verify the proof before returning. Default: the
         ZKDCAP_SELF_VERIFY env var (reference analog of debug_assertions).
         blinding_seed: passed to ``plonk.prover.create_proof``; None draws
